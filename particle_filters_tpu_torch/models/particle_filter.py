@@ -1,0 +1,217 @@
+"""SIR (sequential importance resampling) particle filter (PyTorch port of
+``particle_filters_tpu/models/particle_filter.py``).
+
+The general path: per-particle ``g(x, u)`` and observation log-density run
+under ``torch.func.vmap``; weights live in the log domain; the ESS trigger
+``ess < thresh·N`` picks the resample branch on the host (one sync per
+step, where the JAX package uses ``lax.cond``); systematic resampling of
+the values goes through kernel B2 on a CUDA tensor
+(``resampling.hard.systematic_resample_values``) and through its plain
+version on a CPU tensor. ``run`` is a Python loop over the steps.
+
+Not ported yet: ``run_chunked`` (checkpointing) and ``track_degeneracy``
+(the diagnostics panel), and the sharded ``axis_name`` arguments.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from particle_filters_tpu_torch.core.linalg import chol_with_jitter
+from particle_filters_tpu_torch.core.structs import PFState, as_f32
+from particle_filters_tpu_torch.core.weights import (
+    ess_from_logw,
+    log_normalize,
+    uniform_logw,
+    weighted_mean_cov,
+)
+from particle_filters_tpu_torch.resampling.hard import (
+    resample_indices,
+    systematic_resample_values,
+)
+
+
+class ParticleFilter:
+    """SIR particle filter for
+
+        x_k = g(x_{k−1}, u_{k−1}) + w,  w ~ N(0, Q)
+        z_k = h(x_k) + v,               v ~ N(0, R)
+
+    or a custom per-particle observation log-density ``obs_loglik(x, z)``.
+    Randomness comes from the ``torch.Generator`` each method takes, which
+    must live on ``device``.
+    """
+
+    def __init__(
+        self,
+        g: Callable,
+        h: Optional[Callable],
+        Q,
+        R,
+        *,
+        Np: int = 1000,
+        resample_thresh: float = 0.5,
+        resample_method: str = "systematic",
+        regularize_after_resample: bool = False,
+        obs_loglik: Optional[Callable] = None,
+        device="cpu",
+    ) -> None:
+        self.device = torch.device(device)
+        self.g = g
+        self.h = h
+        self.Q = as_f32(Q, self.device)
+        self.R = as_f32(R, self.device) if R is not None else None
+        self.Np = int(Np)
+        self.resample_thresh = float(resample_thresh)
+        self.resample_method = str(resample_method)
+        self.regularize_after_resample = bool(regularize_after_resample)
+
+        self.nx = self.Q.shape[0]
+        self.Lq = chol_with_jitter(self.Q, initial=1e-10)
+        if obs_loglik is not None:
+            self._obs_loglik = obs_loglik
+        else:
+            if h is None or self.R is None:
+                raise ValueError("Provide either (h, R) or obs_loglik.")
+            self.nz = self.R.shape[0]
+            LR = chol_with_jitter(self.R, initial=1e-12)
+
+            def gaussian_obs_loglik(x, z):
+                diff = z - self.h(x)
+                y = torch.linalg.solve_triangular(LR, diff[:, None], upper=False)[:, 0]
+                # The Gaussian constant is dropped: it cancels in the
+                # weight normalization.
+                return -0.5 * torch.sum(y * y)
+
+            self._obs_loglik = gaussian_obs_loglik
+
+    # -------------------- initialization & diagnostics --------------------
+
+    def initialize(self, generator, mean, cov) -> PFState:
+        """Particles ~ N(mean, cov), uniform weights."""
+        mean = as_f32(mean, self.device).reshape(-1)
+        cov = torch.atleast_2d(as_f32(cov, self.device))
+        Lc = chol_with_jitter(cov, initial=1e-10)
+        eps = torch.randn(
+            (self.Np, mean.shape[0]), generator=generator, device=self.device
+        )
+        return PFState(
+            particles=eps @ Lc.T + mean,
+            log_weights=uniform_logw(self.Np, device=self.device),
+            mean=mean,
+            cov=cov,
+            t=torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+    def effective_sample_size(self, state: PFState) -> torch.Tensor:
+        """Neff = 1/Σw²."""
+        return ess_from_logw(state.log_weights)
+
+    # ------------------------------ core ops ------------------------------
+
+    def _propagate(self, particles, eps, u=None):
+        """vmapped g plus correlated noise ``eps @ Lqᵀ`` for given normals."""
+        prop = torch.func.vmap(lambda x: self.g(x, u))(particles)
+        return prop + eps @ self.Lq.T
+
+    def predict(self, generator, state: PFState, u=None) -> torch.Tensor:
+        """Propagate all particles: vmapped g + correlated Gaussian noise."""
+        p = state.particles
+        eps = torch.randn(p.shape, generator=generator, dtype=p.dtype, device=p.device)
+        return self._propagate(p, eps, u)
+
+    def _loglik(self, particles, z):
+        return torch.func.vmap(lambda x: self._obs_loglik(x, z))(particles)
+
+    def _resample_values(self, generator, p, lw):
+        if self.resample_method == "systematic":
+            return systematic_resample_values(generator, p, logw=lw)
+        idx = resample_indices(self.resample_method, generator, logw=lw)
+        return p[idx.long()]
+
+    def _maybe_resample(self, generator, particles, logw):
+        """ESS-triggered resample; the branch runs on the host."""
+        ess = ess_from_logw(logw)
+        trigger = bool(ess < self.resample_thresh * particles.shape[0])
+        if trigger:
+            particles = self._resample_values(generator, particles, logw)
+            if self.regularize_after_resample:
+                jitter = torch.randn(
+                    particles.shape, generator=generator,
+                    dtype=particles.dtype, device=particles.device,
+                )
+                particles = particles + jitter @ (0.001 * self.Lq.T)
+            logw = uniform_logw(particles.shape[0], logw.dtype, logw.device)
+        return particles, logw, ess, trigger
+
+    def update(self, generator, state: PFState, z, particles=None,
+               return_diagnostics: bool = False):
+        """Log-weight update + conditional resample + posterior moments.
+        ``particles`` defaults to ``state.particles`` (call after
+        ``predict``). With ``return_diagnostics`` returns ``(state, diag)``
+        with ``ess``, ``resampled`` and ``exchange_ok`` (always True here)."""
+        new, diag, _ = self._update(generator, state, z, particles)
+        if return_diagnostics:
+            return new, diag
+        return new
+
+    def _update(self, generator, state, z, particles=None):
+        z = as_f32(z, self.device)
+        if particles is None:
+            particles = state.particles
+        # log_z: the incremental marginal likelihood log p(z_t | z_{1:t-1})
+        # up to the constant the Gaussian path drops.
+        logw, log_z = log_normalize(state.log_weights + self._loglik(particles, z))
+        particles, logw, ess, trig = self._maybe_resample(generator, particles, logw)
+        mean, cov = weighted_mean_cov(particles, logw)
+        new = PFState(
+            particles=particles, log_weights=logw, mean=mean, cov=cov,
+            t=state.t + 1,
+        )
+        return new, {"ess": ess, "resampled": trig, "exchange_ok": True}, log_z
+
+    def step(self, generator, state: PFState, z, u=None,
+             return_diagnostics: bool = False):
+        """Predict then update. See ``update`` for ``return_diagnostics``."""
+        particles = self.predict(generator, state, u)
+        return self.update(
+            generator, state, z, particles=particles,
+            return_diagnostics=return_diagnostics,
+        )
+
+    def run(self, generator, state0: PFState, zs, us=None, *,
+            track_degeneracy: bool = False):
+        """Filter a whole (T, nz) sequence.
+
+        Returns ``(final_state, history)`` with stacked per-step mean (T, nx),
+        cov (T, nx, nx), ess (T,), resampled (T,), log_evidence (T,) and
+        exchange_ok (T,).
+        """
+        if track_degeneracy:
+            raise NotImplementedError(
+                "track_degeneracy needs utils/diagnostics, not ported yet."
+            )
+        zs = as_f32(zs, self.device)
+        state = state0
+        hist = {k: [] for k in ("mean", "cov", "ess", "log_evidence")}
+        triggers = []
+        for t in range(zs.shape[0]):
+            u = None if us is None else us[t]
+            particles = self.predict(generator, state, u)
+            state, diag, log_z = self._update(generator, state, zs[t], particles)
+            hist["mean"].append(state.mean)
+            hist["cov"].append(state.cov)
+            hist["ess"].append(diag["ess"])
+            hist["log_evidence"].append(log_z)
+            triggers.append(diag["resampled"])
+        resampled = torch.tensor(triggers, dtype=torch.bool, device=self.device)
+        return state, {
+            "mean": torch.stack(hist["mean"]),
+            "cov": torch.stack(hist["cov"]),
+            "ess": torch.stack(hist["ess"]),
+            "resampled": resampled,
+            "log_evidence": torch.stack(hist["log_evidence"]),
+            "exchange_ok": torch.ones_like(resampled),
+        }

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels and the paths built on them.
+
+- B1, ``fused_pf.fused_step``: the fused propagate-and-weight step (Triton),
+  driven by ``fused_pf.FusedSIRFilter``.
+- B2, ``resample.resample_by_starts``: systematic-resampled values (CUDA C++),
+  driven by ``resampling.hard.systematic_resample_values``.
+
+Each wrapper launches its kernel on a CUDA tensor, takes its plain version
+on a CPU tensor, and counts launches in ``<wrapper>.launches``. This package
+file imports nothing, so ``resampling.hard`` can import ``ops.resample``
+while ``ops.fused_pf`` imports ``resampling.hard``.
+"""

@@ -1,0 +1,59 @@
+"""Build CUDA sources of this package with ``nvcc`` into a shared library
+with a plain C interface, and load it with ``ctypes``.
+
+The library goes to ``build/torch_kernels/`` beside the package, under a
+name keyed on a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the previous build. Nothing is built at import: the
+first call of a kernel's wrapper on a CUDA tensor builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit.")
+    return found
+
+
+@functools.cache
+def load_library(name: str, *sources: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib<name>`` from ``csrc/<sources>``."""
+    paths = [CSRC / s for s in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}) building {name}:\n{res.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
+    return ctypes.CDLL(str(lib_path))
+

@@ -1,0 +1,356 @@
+"""Fused SIR filter on kernel B1 (PyTorch port of
+``particle_filters_tpu/ops/fused_pf.py``).
+
+Each step is one pass over the particle arrays:
+
+    normals → x' = g(x) + Lq·ε → Δlogw = obs_ll(x', z)
+    → per-program weight partials (max, Σe, Σe², Σe·x, Σe·x⊗x)
+
+on a CUDA tensor by the Triton kernel B1 (``_fused_pf_triton.py``, whose
+note says what bounds it and why it is Triton), on a CPU tensor by its plain
+version :func:`fused_step_reference`. Weight normalization is lazy, as in
+the JAX package: the carry is ``(particles, logw, off_u)`` with
+``off_u = (pending log-Z, uniform flag)``, and the next step folds both into
+its load. The partials are combined by :func:`_combine_partials`.
+
+Layout: particles are (N,) for nx = 1 and (nx, N) for nx > 1, log-weights
+(N,). The JAX package's (8, N/8) layout and 128-lane observation padding
+were TPU layout choices and are not carried over.
+
+Resampling goes through kernel B2 (via ``systematic_resample_values`` of
+``resampling/hard.py``). Whether a step resamples is decided on the host
+from the ESS in the combined row: one device→host sync per step, where the
+JAX package branches on the device with ``lax.cond``.
+
+Models are pointwise: an object with ``nx``, ``params`` (the model's
+scalars), torch ``g(x)`` and ``obs_loglik(x, z)`` on (nx, B) tiles for the
+plain version, and ``@triton.jit`` ``g_tl`` / ``obs_loglik_tl`` for the
+kernel, which reads the same scalars from a tensor. Two ship here:
+:class:`SVModel` and :class:`LinearObsFirstModel`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from particle_filters_tpu_torch.core.structs import as_f32
+from particle_filters_tpu_torch.resampling.hard import systematic_resample_values
+
+_MAX_NX = 10
+
+
+# --- pointwise models ------------------------------------------------------
+class SVModel:
+    """1-D stochastic volatility: x' = α x + noise, z ~ N(0, β² eˣ)
+    (log-likelihood without the −½ log 2π constant, as the benchmark's)."""
+
+    nx = 1
+
+    def __init__(self, alpha: float, beta: float = 1.0) -> None:
+        self.params = (float(alpha), float(beta))
+
+    def g(self, x):
+        return self.params[0] * x
+
+    def obs_loglik(self, x, z):
+        var = self.params[1] ** 2 * torch.exp(x[0])
+        return -0.5 * (z[0] * z[0] / var + torch.log(var))
+
+    @property
+    def g_tl(self):
+        from particle_filters_tpu_torch.ops._fused_pf_triton import sv_g
+
+        return sv_g
+
+    @property
+    def obs_loglik_tl(self):
+        from particle_filters_tpu_torch.ops._fused_pf_triton import sv_obs_loglik
+
+        return sv_obs_loglik
+
+
+class LinearObsFirstModel:
+    """Linear-Gaussian: x' = A x + noise, z = x[0] + N(0, r)."""
+
+    def __init__(self, A, r: float) -> None:
+        A = np.asarray(A, np.float32)
+        self.nx = A.shape[0]
+        self.params = tuple(float(a) for a in A.reshape(-1)) + (float(r),)
+
+    def g(self, x):
+        nx = self.nx
+        A = self.params[: nx * nx]
+        return torch.stack(
+            [sum(A[i * nx + j] * x[j] for j in range(nx)) for i in range(nx)]
+        )
+
+    def obs_loglik(self, x, z):
+        d = z[0] - x[0]
+        return -0.5 * d * d / self.params[-1]
+
+    @property
+    def g_tl(self):
+        from particle_filters_tpu_torch.ops._fused_pf_triton import linear_g
+
+        return linear_g
+
+    @property
+    def obs_loglik_tl(self):
+        from particle_filters_tpu_torch.ops._fused_pf_triton import (
+            linear_obs_first_loglik,
+        )
+
+        return linear_obs_first_loglik
+
+
+# --- kernel B1, its plain version, and the combine -------------------------
+def block_size(nx: int) -> int:
+    """Particles per program: 1024 at nx = 1, fewer as the tile grows."""
+    nxp = 1 << (nx - 1).bit_length()
+    return max(128, 1024 // nxp)
+
+
+def partials_width(nx: int) -> int:
+    return 3 + nx + nx * nx
+
+
+def noise_factor(Q) -> np.ndarray:
+    """f32 ``Lq = cholesky(Q + 1e-10·I)``, taken in numpy as the JAX fused
+    filter takes it."""
+    Q = np.asarray(Q, np.float32)
+    return np.linalg.cholesky(Q + 1e-10 * np.eye(Q.shape[0])).astype(np.float32)
+
+
+def fused_step_reference(x, lw, off_u, z, eps, Lq, model):
+    """Plain version of B1 with injected normals ``eps`` (nx, N).
+
+    Returns ``(x', lw', partials)``: x' (nx, N), lw' (N,) and one partials
+    row per block of ``block_size(nx)`` particles, in the kernel's row format.
+    """
+    nx, n = x.shape
+    block = block_size(nx)
+    noise = sum(Lq[:, j : j + 1] * eps[j] for j in range(nx))
+    x_new = model.g(x) + noise
+    lw_in = torch.where(off_u[1] > 0.5, -math.log(n), lw - off_u[0])
+    lw_new = lw_in + model.obs_loglik(x_new, z)
+
+    nb = -(-n // block)
+    pad = nb * block - n
+    lw_b = torch.nn.functional.pad(lw_new, (0, pad), value=float("-inf")).view(nb, block)
+    x_b = torch.nn.functional.pad(x_new, (0, pad)).view(nx, nb, block)
+    m = lw_b.max(dim=1).values
+    m = torch.where(m > float("-inf"), m, torch.zeros_like(m))
+    e = torch.exp(lw_b - m[:, None])  # (nb, block); padding gives 0
+    ex = (x_b * e).sum(-1).T  # (nb, nx)
+    exx = (x_b[:, None] * x_b[None, :] * e).sum(-1)  # (nx, nx, nb)
+    partials = torch.cat(
+        [
+            m[:, None],
+            e.sum(-1, keepdim=True),
+            (e * e).sum(-1, keepdim=True),
+            ex,
+            exx.permute(2, 0, 1).reshape(nb, nx * nx),
+        ],
+        dim=1,
+    )
+    return x_new, lw_new, partials
+
+
+def _check_step_args(x, lw, off_u, z, Lq, params, eps):
+    nx, n = x.shape
+    tensors = {"x": x, "lw": lw, "off_u": off_u, "z": z, "Lq": Lq, "params": params}
+    if eps is not None:
+        tensors["eps"] = eps
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}.")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}.")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous.")
+    if lw.shape != (n,) or off_u.shape != (2,) or Lq.shape != (nx, nx):
+        raise ValueError(
+            f"shapes: lw {tuple(lw.shape)} (want ({n},)), off_u "
+            f"{tuple(off_u.shape)} (want (2,)), Lq {tuple(Lq.shape)} "
+            f"(want ({nx}, {nx}))."
+        )
+    if eps is not None and eps.shape != x.shape:
+        raise ValueError(f"eps must be {tuple(x.shape)}; got {tuple(eps.shape)}.")
+    if nx > _MAX_NX or nx * n >= 2**31:
+        raise ValueError("need nx <= 10 and nx·N < 2**31.")
+
+
+def fused_step(x, lw, off_u, z, Lq, params, model, *, seed: int,
+               eps: Optional[torch.Tensor] = None):
+    """One fused propagate-and-weight step: ``(x', lw', partials)``.
+
+    ``x`` (nx, N), ``lw`` (N,), ``off_u`` (2,), ``z`` (nz,), ``Lq`` (nx, nx)
+    and ``params`` (the model's scalars) are f32 tensors on one device. On a
+    CUDA tensor kernel B1 draws the normals with Philox keyed on ``seed``
+    (``eps``, when given, replaces them: a test hook); on a CPU tensor the
+    plain version takes ``eps`` or draws it from a generator seeded with
+    ``seed``. ``fused_step.launches`` counts kernel launches.
+    """
+    _check_step_args(x, lw, off_u, z, Lq, params, eps)
+    nx, n = x.shape
+    if x.device.type == "cpu":
+        if eps is None:
+            gen = torch.Generator().manual_seed(int(seed))
+            eps = torch.randn(x.shape, generator=gen, dtype=x.dtype)
+        return fused_step_reference(x, lw, off_u, z, eps, Lq, model)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}.")
+    from particle_filters_tpu_torch.ops import _fused_pf_triton
+
+    block = block_size(nx)
+    x_out = torch.empty_like(x)
+    lw_out = torch.empty_like(lw)
+    part = torch.empty((-(-n // block), partials_width(nx)), dtype=x.dtype, device=x.device)
+    _fused_pf_triton.launch(
+        x, lw, off_u, z, Lq, params, eps, model, int(seed), x_out, lw_out, part, block
+    )
+    fused_step.launches += 1
+    return x_out, lw_out, part
+
+
+fused_step.launches = 0
+
+
+def _combine_partials(partials: torch.Tensor, nx: int):
+    """Exact global moments from per-block (max, Σe, Σe², Σe·x, Σe·x⊗x).
+
+    Returns ``(log_z, ess, mean, exx)`` with ``exx`` the normalized second
+    moment Σw·x⊗x, flat (nx²,); the covariance is ``exx − mean⊗mean``.
+    """
+    m_b = partials[:, 0]
+    s_b = partials[:, 1]
+    e2_b = partials[:, 2]
+    ex_b = partials[:, 3 : 3 + nx]
+    exx_b = partials[:, 3 + nx : 3 + nx + nx * nx]
+
+    m_g = torch.max(m_b)
+    scale = torch.exp(m_b - m_g)  # (n_blocks,)
+    Z = torch.sum(s_b * scale)
+    log_z = m_g + torch.log(torch.clamp(Z, min=1e-30))
+    sum_w2 = torch.sum(e2_b * scale * scale)  # Σ exp(2(lw − m_g))
+    ess = (Z * Z) / torch.clamp(sum_w2, min=1e-30)
+    mean = (scale[:, None] * ex_b).sum(0) / Z
+    exx = (scale[:, None] * exx_b).sum(0) / Z
+    return log_z, ess, mean, exx
+
+
+# --- the filter --------------------------------------------------------------
+class FusedSIRFilter:
+    """SIR particle filter on the fused step (pointwise models, nx ≤ 10,
+    additive Gaussian process noise x' = g(x) + Lq ε).
+
+    ``initialize(generator, mean, cov)`` then ``run(generator, state, zs)``
+    returns ``(state, history)`` with the history schema of
+    ``ParticleFilter.run``. The generator lives on ``device``: it draws the
+    initial cloud, the per-step kernel seeds and the resampling uniforms.
+    """
+
+    def __init__(self, model, Q, *, Np: int, resample_thresh: float = 0.5,
+                 device="cpu") -> None:
+        self.model = model
+        self.Q = np.asarray(Q, np.float32)
+        self.nx = self.Q.shape[0]
+        if self.nx > _MAX_NX:
+            raise ValueError("FusedSIRFilter supports nx <= 10.")
+        if model.nx != self.nx:
+            raise ValueError(f"model.nx = {model.nx} but Q is {self.Q.shape}.")
+        self.device = torch.device(device)
+        self.Lq = torch.as_tensor(noise_factor(self.Q), device=self.device)
+        self.params = torch.tensor(model.params, dtype=torch.float32, device=self.device)
+        self.Np = int(Np)
+        self.resample_thresh = float(resample_thresh)
+        self._off_resampled = torch.tensor([0.0, 1.0], device=self.device)
+        self._zero = torch.zeros(1, device=self.device)
+
+    def _shape(self):
+        return (self.Np,) if self.nx == 1 else (self.nx, self.Np)
+
+    def initialize(self, generator, mean, cov):
+        """Particles ~ N(mean, cov), normalized uniform weights, off_u = 0."""
+        mean = as_f32(mean, self.device).reshape(-1)
+        cov = torch.atleast_2d(as_f32(cov, self.device))
+        L = torch.linalg.cholesky(cov + 1e-10 * torch.eye(self.nx, device=self.device))
+        eps = torch.randn((self.nx, self.Np), generator=generator, device=self.device)
+        particles = (mean[:, None] + L @ eps).reshape(self._shape()).contiguous()
+        logw = torch.full((self.Np,), -math.log(self.Np), device=self.device)
+        return particles, logw, torch.zeros(2, device=self.device)
+
+    def effective_logw(self, state):
+        """The state's true normalized log-weights (the run loop never
+        materializes them; the kernel folds the pending scalars in)."""
+        _, logw, off_u = state
+        return torch.where(off_u[1] > 0.5, -math.log(self.Np), logw - off_u[0])
+
+    def _draw_seeds(self, generator, T: int):
+        """T kernel seeds from ``generator``: one host read per call."""
+        return torch.randint(
+            0, 2**31 - 1, (T,), generator=generator, device=generator.device
+        ).tolist()
+
+    def _resample(self, generator, particles, logw):
+        p = particles.view(self.Np, 1) if self.nx == 1 else particles.T
+        p_new = systematic_resample_values(generator, p, logw=logw)
+        return p_new.view(self.Np) if self.nx == 1 else p_new.T.contiguous()
+
+    def _step_core(self, seed, generator, carry, z):
+        """One fused step + conditional resample: ``(carry, (row, trigger))``
+        with ``row = [log_z, ess, mean (nx), Σw·x⊗x (nx²)]``."""
+        particles, logw, off_u = carry
+        x_new, logw, part = fused_step(
+            particles.view(self.nx, self.Np), logw, off_u, z, self.Lq,
+            self.params, self.model, seed=seed,
+        )
+        log_z, ess, mean, exx = _combine_partials(part, self.nx)
+        row = torch.cat([log_z[None], ess[None], mean, exx])
+        particles = x_new.view(self._shape())
+        # The one host sync of the step: the resample branch runs on the host.
+        trigger = bool(ess < self.resample_thresh * self.Np)
+        if trigger:
+            particles = self._resample(generator, particles, logw)
+            off_u = self._off_resampled
+        else:
+            off_u = torch.cat([log_z[None], self._zero])
+        return (particles, logw, off_u), (row, trigger)
+
+    def _hist_dict(self, rows, triggers):
+        nx = self.nx
+        mean = rows[..., 2 : 2 + nx]
+        exx = rows[..., 2 + nx : 2 + nx + nx * nx].reshape(rows.shape[:-1] + (nx, nx))
+        resampled = torch.tensor(triggers, dtype=torch.bool, device=rows.device)
+        return {
+            "mean": mean,
+            "cov": exx - mean[..., :, None] * mean[..., None, :],
+            "ess": rows[..., 1],
+            "resampled": resampled,
+            "log_evidence": rows[..., 0],
+            "exchange_ok": torch.ones_like(resampled),
+        }
+
+    def _obs(self, z):
+        return as_f32(z, self.device).contiguous()
+
+    def step(self, generator, state, z):
+        """One filter step: ``(new_state, info)`` with one history row."""
+        (seed,) = self._draw_seeds(generator, 1)
+        carry, (row, trig) = self._step_core(seed, generator, state, self._obs(z).reshape(-1))
+        return carry, self._hist_dict(row, trig)
+
+    def run(self, generator, state, zs):
+        """Filter a (T, nz) sequence; the history mirrors ``ParticleFilter.run``."""
+        zs = self._obs(zs)
+        seeds = self._draw_seeds(generator, zs.shape[0])
+        rows, triggers = [], []
+        for t, seed in enumerate(seeds):
+            state, (row, trig) = self._step_core(seed, generator, state, zs[t])
+            rows.append(row)
+            triggers.append(trig)
+        return state, self._hist_dict(torch.stack(rows), triggers)

@@ -1,0 +1,100 @@
+"""Kernel B2: systematic-resampled particle values from the child-run starts.
+
+Replaces ``particle_filters_tpu/ops/resample_pallas.py::_resample_kernel``
+(driven by ``systematic_resample_values_blocked``). On the TPU every
+irregular memory op lowered to a serial loop, so that kernel avoided gathers:
+it compared a window of starts against 128 output positions and summed
+telescoping particle differences, in three span tiers with an XLA fallback,
+exact only below N = 2²⁴ and with O(log N·eps) rounding.
+
+The H100 gathers natively. ``csrc/systematic_resample.cu`` gives every output
+row a thread that binary-searches the sorted starts for its ancestor and
+copies the ancestor's values: exact at any degeneracy, no tiers, no
+fallback, and equal to ``p[idx]`` bit for bit.
+
+What bounds it on the card: bytes. At N = 2²⁰, d = 1 it must read the
+starts and the particles and write the output, 12 MiB in all; the log2 N
+probes of each search hit the L2-resident upper levels of the search tree,
+and neighbouring threads probe neighbouring slots, so their loads coalesce.
+
+The starts come from torch ops (``resampling.hard._systematic_starts``),
+as they came from XLA in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from particle_filters_tpu_torch.ops._nvcc import load_library
+
+_LIB = "pf_resample"
+_SOURCES = ("systematic_resample.cu",)
+
+
+def resample_by_starts_reference(
+    particles: torch.Tensor, starts: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of B2: ``out[i] = particles[max{j : starts[j] ≤ i}]``."""
+    pos = torch.arange(particles.shape[0], device=starts.device, dtype=starts.dtype)
+    idx = torch.searchsorted(starts, pos, right=True) - 1
+    return particles[idx.clamp_(min=0)]
+
+
+def _check(particles: torch.Tensor, starts: torch.Tensor) -> None:
+    if particles.ndim != 2:
+        raise ValueError(f"particles must be (N, d); got {tuple(particles.shape)}.")
+    if starts.ndim != 1 or starts.shape[0] != particles.shape[0]:
+        raise ValueError(
+            f"starts must be (N,) with N = {particles.shape[0]}; "
+            f"got {tuple(starts.shape)}."
+        )
+    if particles.dtype != torch.float32 or starts.dtype != torch.int32:
+        raise TypeError(
+            f"need float32 particles and int32 starts; got {particles.dtype}, "
+            f"{starts.dtype}."
+        )
+    if particles.device != starts.device:
+        raise ValueError("particles and starts must be on one device.")
+    if not (particles.is_contiguous() and starts.is_contiguous()):
+        raise ValueError("particles and starts must be contiguous.")
+    if particles.shape[0] >= 2**31:
+        raise ValueError("N must be below 2**31.")
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library(_LIB, *_SOURCES)
+    fn = lib.pf_resample_by_starts
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Systematic-resampled values of (N, d) f32 ``particles`` given the
+    sorted (N,) int32 child-run ``starts`` (``starts[0] == 0``).
+
+    A CUDA tensor goes through kernel B2; a CPU tensor through its plain
+    version. ``resample_by_starts.launches`` counts kernel launches.
+    """
+    _check(particles, starts)
+    if particles.device.type == "cpu":
+        return resample_by_starts_reference(particles, starts)
+    if particles.device.type != "cuda":
+        raise ValueError(f"unsupported device {particles.device}.")
+    lib = _library()
+    out = torch.empty_like(particles)
+    n, d = particles.shape
+    with torch.cuda.device(particles.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pf_resample_by_starts(
+            particles.data_ptr(), starts.data_ptr(), out.data_ptr(), n, d, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"B2 resample kernel launch failed: CUDA error {err}.")
+    resample_by_starts.launches += 1
+    return out
+
+
+resample_by_starts.launches = 0

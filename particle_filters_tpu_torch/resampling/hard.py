@@ -1,0 +1,207 @@
+"""Hard (index-producing) resampling: systematic, multinomial, stratified,
+residual (PyTorch port of ``particle_filters_tpu/resampling/hard.py``).
+
+One inverse-CDF convention, :func:`_child_run_ends`, defines systematic
+ancestry for the index, count and value paths alike. The cdf is a plain
+``torch.cumsum``: the JAX package's ``blocked_cumsum`` was a TPU workaround
+whose summation order differs, so run ends can differ by ±1 at rare ceil
+boundaries; on a shared cdf and u they are integer-equal.
+
+All functions take normalized linear weights ``w`` or log-weights ``logw``
+and draw their uniforms from the caller's ``torch.Generator``, which must
+live on the weights' device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from particle_filters_tpu_torch.core.weights import log_normalize
+from particle_filters_tpu_torch.ops.resample import resample_by_starts
+
+# Past this the f32 product M·cdf loses unit spacing. The JAX package then
+# switches to the exact integer path of resampling/exact.py, not ported yet.
+EXACT_THRESHOLD = 1 << 24
+
+
+def _weights_from(
+    w: Optional[torch.Tensor], logw: Optional[torch.Tensor]
+) -> torch.Tensor:
+    if (w is None) == (logw is None):
+        raise ValueError("Pass exactly one of w= or logw=.")
+    if logw is not None:
+        logw_n, _ = log_normalize(logw)
+        return torch.exp(logw_n)
+    return w / torch.sum(w)
+
+
+def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """idx[i] = smallest j with positions[i] < cdf[j]."""
+    n = cdf.shape[0]
+    cdf = cdf / cdf[-1]  # force the final entry to 1
+    idx = torch.searchsorted(cdf, positions, right=True)
+    return idx.clamp_(0, n - 1).to(torch.int32)
+
+
+def _child_run_ends_u(weights: torch.Tensor, m: int, u: torch.Tensor) -> torch.Tensor:
+    """t_j = #{i : (u + i)/M < cdf_j} = ⌈M·cdf_j − u⌉ for a given u."""
+    n = weights.shape[0]
+    if max(n, m) > EXACT_THRESHOLD:
+        raise NotImplementedError(
+            f"max(N, M) = {max(n, m)} > 2**24: f32 run ends are inexact there; "
+            "the exact integer path is not ported yet."
+        )
+    cdf = torch.cumsum(weights, dim=0)
+    cdf = cdf / cdf[-1]
+    t = torch.ceil(m * cdf - u)
+    return t.clamp_(0.0, m).to(torch.int32)
+
+
+def _child_run_ends(generator, weights: torch.Tensor, m: int) -> torch.Tensor:
+    """The END (exclusive) of each ancestor's child run under systematic
+    resampling with M positions (u + i)/M, u ~ U[0, 1) from ``generator``."""
+    return _child_run_ends_u(weights, m, _uniform(generator, (), weights))
+
+
+def _systematic_starts(generator, weights: torch.Tensor, m: int) -> torch.Tensor:
+    """start_j = t_{j−1} (t_{−1} = 0): int32 (N,), values in [0, M]."""
+    t = _child_run_ends(generator, weights, m)
+    return torch.cat([t.new_zeros(1), t[:-1]])
+
+
+def systematic_resample(
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+    num_samples: Optional[int] = None,
+) -> torch.Tensor:
+    """Systematic resampling: positions (u + i)/M with one shared u.
+    Returns int32 ancestor indices ``idx[i] = max{j : start_j ≤ i}``."""
+    weights = _weights_from(w, logw)
+    m = num_samples or weights.shape[0]
+    starts = _systematic_starts(generator, weights, m)
+    marks = torch.zeros(m + 1, dtype=torch.int32, device=weights.device)
+    marks.index_add_(0, starts, torch.ones_like(starts))  # slot m drops
+    return torch.cumsum(marks[:m], dim=0, dtype=torch.int32) - 1
+
+
+def systematic_counts(
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-ancestor child counts under the same convention (and, for the
+    same generator state, the same u) as ``systematic_resample``."""
+    weights = _weights_from(w, logw)
+    t = _child_run_ends(generator, weights, weights.shape[0])
+    return torch.diff(t, prepend=t.new_zeros(1))
+
+
+def systematic_resample_values(
+    generator,
+    particles: torch.Tensor,
+    *,
+    w: Optional[torch.Tensor] = None,
+    logw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Systematic resampling returning the resampled (N, d) particle VALUES.
+
+    The starts are torch ops; the values come from kernel B2
+    (``ops/resample.py``) on a CUDA tensor and from its plain version on a
+    CPU tensor. The values are copies, so they equal ``particles[idx]``.
+    """
+    weights = _weights_from(w, logw)
+    starts = _systematic_starts(generator, weights, weights.shape[0])
+    return resample_by_starts(particles.contiguous(), starts)
+
+
+def stratified_resample(
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+    num_samples: Optional[int] = None,
+) -> torch.Tensor:
+    """Stratified resampling: positions (uᵢ + i)/M with independent uᵢ."""
+    weights = _weights_from(w, logw)
+    m = num_samples or weights.shape[0]
+    u = _uniform(generator, (m,), weights)
+    positions = (u + torch.arange(m, dtype=weights.dtype, device=weights.device)) / m
+    return _inverse_cdf(torch.cumsum(weights, dim=0), positions)
+
+
+def multinomial_resample(
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+    num_samples: Optional[int] = None,
+) -> torch.Tensor:
+    """Multinomial resampling: M sorted iid uniforms, inverse-CDF mapped,
+    then randomly permuted so marginals match ``rng.choice(p=w)``."""
+    weights = _weights_from(w, logw)
+    m = num_samples or weights.shape[0]
+    u, _ = torch.sort(_uniform(generator, (m,), weights))
+    idx_sorted = _inverse_cdf(torch.cumsum(weights, dim=0), u)
+    perm = torch.randperm(m, generator=generator, device=weights.device)
+    return idx_sorted[perm]
+
+
+def residual_resample(
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Residual resampling: ⌊N wᵢ⌋ deterministic copies + multinomial on the
+    fractional residuals, slot i taking the deterministic ancestor while
+    i < Σ⌊N wᵢ⌋."""
+    weights = _weights_from(w, logw)
+    n = weights.shape[0]
+    counts = torch.floor(n * weights)
+    n_det = torch.sum(counts)
+    cum_counts = torch.cumsum(counts, dim=0)
+
+    slots = torch.arange(n, dtype=weights.dtype, device=weights.device)
+    det_idx = torch.searchsorted(cum_counts, slots, right=True).clamp_(0, n - 1)
+
+    resid = torch.clamp(n * weights - counts, min=0.0)
+    resid_cdf = torch.cumsum(resid / torch.clamp(torch.sum(resid), min=1e-38), dim=0)
+    u = _uniform(generator, (n,), weights)
+    multi_idx = torch.searchsorted(resid_cdf, u, right=True).clamp_(0, n - 1)
+
+    return torch.where(slots < n_det, det_idx, multi_idx).to(torch.int32)
+
+
+_METHODS = {
+    "systematic": systematic_resample,
+    "multinomial": multinomial_resample,
+    "stratified": stratified_resample,
+    "residual": residual_resample,
+}
+
+
+def resample_indices(
+    method: str,
+    generator,
+    w: Optional[torch.Tensor] = None,
+    *,
+    logw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dispatch by method name ('systematic' | 'multinomial' | 'stratified' |
+    'residual')."""
+    try:
+        fn = _METHODS[method]
+    except KeyError:
+        raise ValueError(
+            f"Unknown resample method {method!r}; expected one of {sorted(_METHODS)}."
+        ) from None
+    return fn(generator, w, logw=logw)
