@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on an NVIDIA GPU.
+"""Drive the PyTorch port's paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds both hand-written kernels from the sources in this checkout (B2 with
-nvcc into build/torch_kernels/, B1 by Triton), holds each against its plain
-PyTorch version on the card at N = 2^20, runs the SIR filter on the 1-D
-stochastic-volatility model (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200,
-systematic resampling when ESS < N/2) through ``FusedSIRFilter`` and through
-the general ``ParticleFilter``, checks their results and that the main path
-launched both kernels, and times the kernels against their plain versions.
+Builds every hand-written kernel from the sources in this checkout (B2 and
+the probes X1-X3 with nvcc into build/torch_kernels/, one nvcc per source,
+all started together; B1 by Triton) and holds each against its plain
+PyTorch version on the card at N = 2^20 (X1 and X2 within 1e-5: they
+telescope f32 differences in another order; X2 also against B2). Then:
+
+- the main path: the SIR filter on the 1-D stochastic-volatility model
+  (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
+  when ESS < N/2) through ``FusedSIRFilter`` and through the general
+  ``ParticleFilter``, checked, with B1 and B2 counted;
+- the profiling path: the small-N step decomposition
+  (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
+  variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
+  (``benchmarks.exp_resample_dma``), with X1-X3 counted;
+- each kernel timed against its plain version, its bound and, where one
+  PyTorch call computes the same function, that call.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -24,11 +33,20 @@ import math
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from particle_filters_tpu_torch.benchmarks import (
+    exp_kernel_var,
+    exp_resample_dma,
+    profile_small_n,
+)
 from particle_filters_tpu_torch.models import ParticleFilter
+from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
+from particle_filters_tpu_torch.ops import span_resample as x2
+from particle_filters_tpu_torch.ops import window_resample as x1
 from particle_filters_tpu_torch.ops.fused_pf import (
     FusedSIRFilter,
     LinearObsFirstModel,
@@ -37,6 +55,7 @@ from particle_filters_tpu_torch.ops.fused_pf import (
     fused_step,
     fused_step_reference,
 )
+from particle_filters_tpu_torch.ops.resample_blocked import fine_chunks
 from particle_filters_tpu_torch.resampling.hard import _systematic_starts
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
 
@@ -44,6 +63,9 @@ N = 1 << 20
 T = 200
 ALPHA, SIGMA, BETA = 0.95, 0.2, 1.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two orders
+SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -93,7 +115,11 @@ def check_b2(gen, n, device) -> float:
     """B2 against its plain version: equal bit for bit (both copy values)."""
     max_err = 0.0
     for label, w in _b2_cases(gen, n, device):
+        raw = torch.cumsum(w, 0)  # the card's parallel scan, before _cdf's running max
+        descents = int((raw[1:] < raw[:-1]).sum())
         starts = _systematic_starts(gen, w, n)
+        _check(bool((starts[1:] >= starts[:-1]).all()), f"starts nondecreasing ({label})")
+        print(f"B2 {label:22s}: raw cumsum descents {descents}, starts nondecreasing")
         for d in (1, 3):
             p = torch.randn((n, d), generator=gen, device=device)
             out = b2.resample_by_starts(p, starts)
@@ -150,6 +176,79 @@ def check_b1(gen, n, device) -> float:
             _check(abs(mu) < 5 / math.sqrt(n), f"Philox normals mean {mu} (nx={nx})")
             _check(abs(var - 1) < 5 * math.sqrt(2 / n), f"Philox normals var {var} (nx={nx})")
             print(f"B1 nx={nx} drawn eps row {i}: mean {mu:+.2e}, var {var:.5f}")
+    return max_err
+
+
+# --- the probes X1-X3 -------------------------------------------------------
+def check_x3(device) -> float:
+    """X3 against its plain version: equal bit for bit (one addition)."""
+    x = torch.randn(x3.TILE, device=device)
+    _check(torch.equal(x3.add_one(x), x3.add_one_reference(x)), "X3 == plain bit for bit")
+    print("X3 add_one: equal to plain")
+    return 0.0
+
+
+def check_x1(n, device) -> float:
+    """Every X1 variant against its plain version on the windows of
+    ``exp_kernel_var.make_inputs`` at N = ``n``: counts equal, sums within
+    PROBE_TOL."""
+    max_err = 0.0
+    for label, q, sg, transpose, sum_only in exp_kernel_var.VARIANTS:
+        s_win, d_win = exp_kernel_var.make_inputs(q, sg, n=n, device=device)
+        out = x1.window_compare_sum(s_win, d_win, sum_only=sum_only, transpose=transpose)
+        ref = x1.window_compare_sum_reference(
+            s_win, d_win, sum_only=sum_only, transpose=transpose)
+        err = (out - ref).abs().max().item()
+        max_err = max(max_err, err)
+        if sum_only:
+            _check(torch.equal(out, ref), f"X1 {label}: counts == plain")
+        _check(err <= PROBE_TOL, f"X1 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
+        print(f"X1 {label}: max |kernel - plain| = {err:.3e} (N={n})")
+    return max_err
+
+
+def _x2_cases(gen, n, device):
+    """(label, weights, the refusal expected or None): X2's path is
+    lognormal weights down to ESS ≈ N/3 and point masses; heavier
+    degeneracy leaves a sub-group's Q-chunk window, a weight desert the
+    span budget."""
+    z = torch.randn(n, generator=gen, device=device)
+    for sigma in (0.5, 1.0, 1.5):
+        yield f"lognormal sigma={sigma}", torch.softmax(sigma * z, 0), None
+    mass = torch.zeros(n, device=device)
+    mass[n // 3] = 1.0
+    yield "point mass", mass, None
+    yield "lognormal sigma=3.0", torch.softmax(3.0 * z, 0), "window"
+    desert = torch.where(torch.arange(n, device=device) < n // 2, 1e-3, 1.0)
+    yield "weight desert", desert / desert.sum(), "spanD"
+
+
+def check_x2(gen, n, device) -> float:
+    """X2 against its plain version and against B2 on the same starts on
+    its path, and refused off it."""
+    max_err = 0.0
+    for label, w, refusal in _x2_cases(gen, n, device):
+        starts = _systematic_starts(gen, w, n)
+        a0, _ = exp_resample_dma.rank_a0(starts, n, n // x2.SUB)
+        p = torch.randn((n, 1), generator=gen, device=device)
+        if refusal is not None:
+            try:
+                x2.span_resample_values(starts, p, a0)
+            except ValueError as e:
+                _check(refusal in str(e), f"X2 {label}: refused for its {refusal} ({e})")
+                print(f"X2 {label:22s}: refused ({e})")
+                continue
+            raise RuntimeError(f"check failed: X2 {label}: not refused")
+        chunks = fine_chunks(starts, p, n // x2.SUB, x2.ROWS)
+        out = x2.span_compare_sum(*chunks, a0)
+        ref = x2.span_compare_sum_reference(*chunks, a0)
+        vs_b2 = x2.span_resample_values(starts, p, a0) - b2.resample_by_starts(p, starts)
+        err, err_b2 = (out - ref).abs().max().item(), vs_b2.abs().max().item()
+        max_err = max(max_err, err)
+        _check(err <= PROBE_TOL, f"X2 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
+        _check(err_b2 <= PROBE_TOL, f"X2 {label}: max |X2 - B2| {err_b2} <= {PROBE_TOL}")
+        print(f"X2 {label:22s}: spanD {int(x2.span_rows(a0))}, max |kernel - plain| = "
+              f"{err:.3e}, max |X2 - B2| = {err_b2:.3e} (N={n})")
     return max_err
 
 
@@ -210,6 +309,26 @@ def run_main_path(n, device):
     return counts, (f, gen, state0, zs)
 
 
+# --- the profiling path ------------------------------------------------------
+def run_profiling_path(device, card):
+    """The small-N decomposition, X1's variants and X2 against B2, with the
+    probes' launch counts set to 0 just before and read just after."""
+    probes = {"X1": x1.window_compare_sum, "X2": x2.span_compare_sum, "X3": x3.add_one}
+    for wrapper in probes.values():
+        wrapper.launches = 0
+    m_lo, m_hi, reps = SMALL_N_SLOPE
+    print(f"small-N step decomposition, slope m {m_lo} -> {m_hi}, best of {reps}  [{card}]")
+    for k in (14, 16, 20):
+        profile_small_n.profile_n(1 << k, device, m_lo, m_hi, reps)
+    exp_kernel_var.run_all(device)
+    exp_resample_dma.run_all(device)
+    counts = {name: wrapper.launches for name, wrapper in probes.items()}
+    print(f"profiling path launches {counts}  [{card}]")
+    for name, count in counts.items():
+        _check(count > 0, f"{name} launched on the profiling path ({count} times)")
+    return counts
+
+
 # --- timings -----------------------------------------------------------------
 def _graph_ms(fn, reps: int = 16, samples: int = 5) -> float:
     """Device time per call without host overhead: ``reps`` calls captured
@@ -227,50 +346,118 @@ def _graph_ms(fn, reps: int = 16, samples: int = 5) -> float:
     return _time_ms(graph.replay, reps=1, samples=samples) / reps
 
 
-def time_kernels(gen, n, device, card):
-    """Each kernel and its plain version at N = 2^20, in turns (kernel,
-    plain, plain, kernel): device time from CUDA-graph replay, and the eager
-    per-call time that includes the Python wrapper. Eight input sets are
-    cycled so that a launch finds its inputs out of the 50 MB L2."""
-    sets = 8
+def _bound(nbytes: int, ops: float):
+    """The least time the card could take (ms) and what sets it: each input
+    byte read once and each output byte written once at 3.35 TB/s, or the
+    operations at 67 TFLOP/s fp32, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _rotating(fn, sets):
+    """``fn`` called on ``sets`` in turn: eight input sets keep a launch's
+    inputs out of the 50 MB L2 where they are large."""
+    it = iter(range(10**9))
+    return lambda: fn(*sets[next(it) % len(sets)])
+
+
+def _b1_timed(gen, n, device):
     model = SVModel(ALPHA, BETA)
     f, *_ = _b1_inputs(gen, model, [[SIGMA**2]], n, device, False)
-    b1_in = [_b1_inputs(gen, model, [[SIGMA**2]], n, device, False)[1:] for _ in range(sets)]
-    it = iter(range(10**9))
+    sets = [_b1_inputs(gen, model, [[SIGMA**2]], n, device, False)[1:] for _ in range(8)]
 
-    def b1_kernel():
-        x, lw, off_u, z = b1_in[next(it) % sets]
-        fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=7)
+    def kern(x, lw, off_u, z):
+        return fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=7)
 
-    def b1_plain():  # the plain step draws its normals too (default generator)
-        x, lw, off_u, z = b1_in[next(it) % sets]
+    def plain(x, lw, off_u, z):  # the plain step draws its normals too
         eps = torch.randn(x.shape, device=device)
-        fused_step_reference(x, lw, off_u, z, eps, f.Lq, model)
+        return fused_step_reference(x, lw, off_u, z, eps, f.Lq, model)
 
+    out = kern(*sets[0])
+    nbytes = _nbytes(*sets[0], f.Lq, f.params, *out)
+    # Philox and Box-Muller, the model, the weight and the partials: about
+    # 128 operations a particle, counted generously; bytes bound it anyway.
+    return kern, plain, None, sets, _bound(nbytes, 128 * n)
+
+
+def _b2_timed(gen, n, device):
     w = torch.softmax(2.0 * torch.randn(n, generator=gen, device=device), 0)
-    b2_in = [(torch.randn((n, 1), generator=gen, device=device), _systematic_starts(gen, w, n))
-             for _ in range(sets)]
+    sets = []
+    for _ in range(8):
+        starts = _systematic_starts(gen, w, n)
+        p = torch.randn((n, 1), generator=gen, device=device)
+        counts = torch.diff(starts, append=starts.new_full((1,), n)).long()  # untimed
+        sets.append((p, starts, counts))
 
-    def b2_kernel():
-        b2.resample_by_starts(*b2_in[next(it) % sets])
+    def library(p, starts, counts):
+        return torch.repeat_interleave(p, counts, dim=0, output_size=n)
 
-    def b2_plain():
-        b2.resample_by_starts_reference(*b2_in[next(it) % sets])
+    p, starts, counts = sets[0]
+    _check(torch.equal(library(*sets[0]), b2.resample_by_starts(p, starts)),
+           "repeat_interleave == B2 (the library call computes B2's function)")
+    nbytes = _nbytes(p, starts, p)  # p and starts in, the values out
+    ops = 2 * math.ceil(math.log2(n)) * n  # a compare and a select per probe
+    return (lambda p, s, c: b2.resample_by_starts(p, s),
+            lambda p, s, c: b2.resample_by_starts_reference(p, s), library, sets,
+            _bound(nbytes, ops))
 
+
+def _x1_timed(gen, n, device):
+    _, q, sg, _, _ = exp_kernel_var.VARIANTS[0]  # v0, the probe's subject
+    sets = [exp_kernel_var.make_inputs(q, sg, n=n, device=device, seed=k) for k in range(8)]
+    s_win, d_win = sets[0]
+    out_bytes = s_win.shape[0] * sg * x1.SUB * 4
+    ops = 3 * s_win.numel() * x1.SUB  # compare, select, add per (output, window entry)
+    return (x1.window_compare_sum, x1.window_compare_sum_reference, None, sets,
+            _bound(_nbytes(s_win, d_win) + out_bytes, ops))
+
+
+def _x2_timed(gen, n, device):
+    w = torch.softmax(torch.randn(n, generator=gen, device=device), 0)
+    sets = []
+    for _ in range(8):
+        starts = _systematic_starts(gen, w, n)
+        a0, _ = exp_resample_dma.rank_a0(starts, n, n // x2.SUB)
+        p = torch.randn((n, 1), generator=gen, device=device)
+        sets.append((*fine_chunks(starts, p, n // x2.SUB, x2.ROWS), a0))
+    ops = 3 * n * x2.Q * x2.SUB  # compare, select, add per (output, window entry)
+    return (x2.span_compare_sum, x2.span_compare_sum_reference, None, sets,
+            _bound(_nbytes(*sets[0]) + n * 4, ops))
+
+
+def _x3_timed(gen, n, device):
+    x = torch.randn(x3.TILE, generator=gen, device=device)
+    return (x3.add_one, x3.add_one_reference, lambda t: torch.add(t, 1), [(x,)],
+            _bound(2 * _nbytes(x), x.numel()))
+
+
+def time_kernels(gen, n, device, card):
+    """Each kernel, its plain version and its library call at N = 2^20,
+    in turns (kernel, plain, library, library, plain, kernel): device time
+    from CUDA-graph replay, and the eager per-call time that includes the
+    Python wrapper. Returns ``{name: (ms, plain_ms, library_ms, (bound_ms,
+    bound_by))}``."""
     out = {}
-    for name, kern, plain, nbytes in (
-        ("B1", b1_kernel, b1_plain, 4 * n * 4),  # x, lw in; x', lw' out
-        ("B2", b2_kernel, b2_plain, 3 * n * 4),  # starts, p in; out
-    ):
-        dev = [_graph_ms(kern), _graph_ms(plain), _graph_ms(plain), _graph_ms(kern)]
-        ms, plain_ms = (dev[0] + dev[3]) / 2, (dev[1] + dev[2]) / 2
+    for name, make in (("B1", _b1_timed), ("B2", _b2_timed), ("X1", _x1_timed),
+                       ("X2", _x2_timed), ("X3", _x3_timed)):
+        kern, plain, library, sets, bound = make(gen, n, device)
+        kern, plain = _rotating(kern, sets), _rotating(plain, sets)
+        lib = None if library is None else _rotating(library, sets)
+        k0, p0 = _graph_ms(kern), _graph_ms(plain)
+        l_ms = None if lib is None else (_graph_ms(lib) + _graph_ms(lib)) / 2
+        ms, plain_ms = (k0 + _graph_ms(kern)) / 2, (p0 + _graph_ms(plain)) / 2
         eager = [_time_ms(kern), _time_ms(plain), _time_ms(plain), _time_ms(kern)]
-        share = nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
-        out[name] = (ms, plain_ms)
-        print(f"{name} at N={n}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-              f"eager per call kernel {(eager[0] + eager[3]) / 2:.4f} ms, "
-              f"plain {(eager[1] + eager[2]) / 2:.4f} ms; {nbytes / 2**20:.0f} MiB "
-              f"moved -> {share:.3f} of 3.35 TB/s  [{card}]")
+        out[name] = (ms, plain_ms, l_ms, bound)
+        lib_txt = "none" if l_ms is None else f"{l_ms:.6f} ms"
+        print(f"{name} at N={n}: device kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"library call {lib_txt}; bound {bound[0]:.6f} ms ({bound[1]}) -> "
+              f"{bound[0] / ms:.3f} of it; eager per call kernel "
+              f"{(eager[0] + eager[3]) / 2:.4f} ms, plain {(eager[1] + eager[2]) / 2:.4f} ms"
+              f"  [{card}]")
     return out
 
 
@@ -304,9 +491,29 @@ def time_fused_run(n, card, fused_run) -> None:
         print(f"  {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
 
 
+def _build_all(gen) -> None:
+    """One nvcc per CUDA source, all started together; then B1's Triton
+    compiles (two models, drawn and injected normals)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for fut in [pool.submit(m._library) for m in (b2, x1, x2, x3)]:
+            fut.result()
+    print(f"nvcc build+load of B2, X1, X2, X3 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
+        _, x, lw, off_u, z = _b1_inputs(gen, model, Q, 4096, device, False)
+        f = FusedSIRFilter(model, Q, Np=4096, device=device)
+        for eps in (None, torch.randn(x.shape, generator=gen, device=device)):
+            fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=3, eps=eps)
+    torch.cuda.synchronize()
+    print(f"B1 Triton compile (2 models x 2 variants) {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's kernels run only on a GPU.")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls off")
@@ -318,38 +525,43 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     gen = torch.Generator(device=device).manual_seed(2024)
 
-    t0 = time.perf_counter()
-    b2._library()
-    print(f"B2 nvcc build+load {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
-        _, x, lw, off_u, z = _b1_inputs(gen, model, Q, 4096, device, False)
-        f = FusedSIRFilter(model, Q, Np=4096, device=device)
-        for eps in (None, torch.randn(x.shape, generator=gen, device=device)):
-            fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=3, eps=eps)
-    torch.cuda.synchronize()
-    print(f"B1 Triton compile (2 models x 2 variants) {time.perf_counter() - t0:.2f} s")
-
-    b2_err = check_b2(gen, N, device)
-    b1_err = check_b1(gen, N, device)
+    _build_all(gen)
+    errs = {"B2": check_b2(gen, N, device), "B1": check_b1(gen, N, device),
+            "X3": check_x3(device), "X1": check_x1(N, device), "X2": check_x2(gen, N, device)}
     torch.cuda.synchronize()
 
     counts, fused_run = run_main_path(N, device)
+    counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)
     time_fused_run(N, card, fused_run)
 
-    kernels = [
-        {"name": "B1 fused SIR propagate-and-weight step", "route": "triton",
-         "source": "particle_filters_tpu_torch/ops/_fused_pf_triton.py",
-         "replaces": "particle_filters_tpu/ops/fused_pf.py:63",
-         "launches": counts["B1"], "max_abs_err": b1_err,
-         "ms": times["B1"][0], "plain_ms": times["B1"][1]},
-        {"name": "B2 systematic resample values", "route": "cuda",
-         "source": "particle_filters_tpu_torch/csrc/systematic_resample.cu",
-         "replaces": "particle_filters_tpu/ops/resample_pallas.py:99",
-         "launches": counts["B2"], "max_abs_err": b2_err,
-         "ms": times["B2"][0], "plain_ms": times["B2"][1]},
-    ]
+    rows = (
+        ("B1", "B1 fused SIR propagate-and-weight step", "triton",
+         "particle_filters_tpu_torch/ops/_fused_pf_triton.py",
+         "particle_filters_tpu/ops/fused_pf.py:63"),
+        ("B2", "B2 systematic resample values", "cuda",
+         "particle_filters_tpu_torch/csrc/systematic_resample.cu",
+         "particle_filters_tpu/ops/resample_pallas.py:99"),
+        ("X1", "X1 windowed compare-and-sum (probe, v0)", "cuda",
+         "particle_filters_tpu_torch/csrc/window_resample.cu",
+         "benchmarks/exp_kernel_var.py:87"),
+        ("X2", "X2 span-staged resample values (probe)", "cuda",
+         "particle_filters_tpu_torch/csrc/span_resample.cu",
+         "benchmarks/exp_resample_dma.py:48"),
+        ("X3", "X3 launch floor (probe)", "cuda",
+         "particle_filters_tpu_torch/csrc/launch_probe.cu",
+         "benchmarks/profile_small_n.py:137"),
+    )
+    kernels = []
+    for key, name, route, source, replaces in rows:
+        ms, plain_ms, library_ms, (bound_ms, bound_by) = times[key]
+        kernels.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": counts[key], "max_abs_err": errs[key], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    print(f"chip_smoke.py total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

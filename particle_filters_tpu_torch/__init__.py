@@ -1,9 +1,11 @@
 """particle_filters_tpu_torch — the PyTorch / CUDA port of particle_filters_tpu.
 
 Module for module beside the JAX package: ``core``, ``simulators``,
-``resampling``, ``models`` and ``ops``, with the hand-written Hopper kernels
-under ``ops`` (wrappers) and ``csrc`` (CUDA sources). It imports ``torch``
-and never ``jax``, and sets no global torch flags.
+``resampling``, ``models``, ``ops`` and ``utils``, with the hand-written
+Hopper kernels under ``ops`` (wrappers) and ``csrc`` (CUDA sources), and the
+profiling probes under ``benchmarks``. Its entry points put their tensors on
+the card unless given ``device="cpu"``. It imports ``torch`` and never
+``jax``, and sets no global torch flags.
 """
 
 from particle_filters_tpu_torch.models import ParticleFilter, PFState

@@ -1,0 +1,11 @@
+"""Profiling probes of the port, run as modules on a GPU host.
+
+- ``profile_small_n``: the small-N step decomposition of the fused SIR path
+  (with probe X3, ``ops/launch_probe.py``, as its launch floor);
+- ``exp_kernel_var``: the windowed compare-and-sum variants (probe X1,
+  ``ops/window_resample.py``);
+- ``exp_resample_dma``: the span-staged resample (probe X2,
+  ``ops/span_resample.py``) against kernel B2.
+
+All time by the slope protocol of ``_slope``. Importing runs nothing.
+"""

@@ -23,9 +23,9 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
-def state_from_jax(state, *, device="cpu"):
+def state_from_jax(state, *, device="cuda"):
     """A JAX ``PFState`` or fused 3-tuple carry (numpy-convertible leaves)
-    as this package's state on ``device``."""
+    as this package's state on ``device`` (the card unless ``"cpu"``)."""
     if isinstance(state, tuple):
         particles_t, logw, off_u = (np.asarray(a, np.float32) for a in state)
         # Log-weights ride (8, N/8) only for nx = 1, a (1, N) row otherwise.
@@ -44,7 +44,7 @@ def state_from_jax(state, *, device="cpu"):
     )
 
 
-def params_from_jax(Q, *, device="cpu"):
+def params_from_jax(Q, *, device="cuda"):
     """``(Q, Lq)`` as f32 tensors, with the JAX fused filter's
     ``Lq = cholesky(Q + 1e-10·I)``."""
     return _t(Q, device, np.float32), _t(noise_factor(Q), device)

@@ -41,7 +41,7 @@ class ParticleFilter:
 
     or a custom per-particle observation log-density ``obs_loglik(x, z)``.
     Randomness comes from the ``torch.Generator`` each method takes, which
-    must live on ``device``.
+    must live on ``device`` (the card unless ``device="cpu"``).
     """
 
     def __init__(
@@ -56,7 +56,7 @@ class ParticleFilter:
         resample_method: str = "systematic",
         regularize_after_resample: bool = False,
         obs_loglik: Optional[Callable] = None,
-        device="cpu",
+        device="cuda",
     ) -> None:
         self.device = torch.device(device)
         self.g = g

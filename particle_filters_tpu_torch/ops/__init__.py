@@ -4,6 +4,10 @@
   driven by ``fused_pf.FusedSIRFilter``.
 - B2, ``resample.resample_by_starts``: systematic-resampled values (CUDA C++),
   driven by ``resampling.hard.systematic_resample_values``.
+- The profiling probes (CUDA C++), driven by ``benchmarks``: X1,
+  ``window_resample.window_compare_sum``; X2,
+  ``span_resample.span_compare_sum``, on the prep of ``resample_blocked``;
+  X3, ``launch_probe.add_one``.
 
 Each wrapper launches its kernel on a CUDA tensor, takes its plain version
 on a CPU tensor, and counts launches in ``<wrapper>.launches``. This package

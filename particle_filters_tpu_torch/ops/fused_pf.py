@@ -250,12 +250,13 @@ class FusedSIRFilter:
 
     ``initialize(generator, mean, cov)`` then ``run(generator, state, zs)``
     returns ``(state, history)`` with the history schema of
-    ``ParticleFilter.run``. The generator lives on ``device``: it draws the
-    initial cloud, the per-step kernel seeds and the resampling uniforms.
+    ``ParticleFilter.run``. The generator lives on ``device`` (the card
+    unless ``device="cpu"``): it draws the initial cloud, the per-step
+    kernel seeds and the resampling uniforms.
     """
 
     def __init__(self, model, Q, *, Np: int, resample_thresh: float = 0.5,
-                 device="cpu") -> None:
+                 device="cuda") -> None:
         self.model = model
         self.Q = np.asarray(Q, np.float32)
         self.nx = self.Q.shape[0]

@@ -1,0 +1,103 @@
+"""Probe X1: the windowed compare-and-sum of the blocked resample.
+
+Replaces ``benchmarks/exp_kernel_var.py::kern_v0``, the TPU probe that split
+the cost of the blocked resample kernel (``ops/resample_pallas.py``) into
+its compare, select, reduce and transpose. For super-group ``s``, sub-group
+``i`` and output ``k`` at the global position ``pos = (s·SG + i)·128 + k``::
+
+    out = Σ_w [s_win[s, i, w] ≤ pos] · d_win[s, i, 0, w]
+
+over the sub-group's window of W = Q·128 fine-chunk starts and particle
+differences (``benchmarks/exp_kernel_var.py::make_inputs`` builds them).
+``sum_only`` counts the selected entries instead; ``transpose=False``
+writes (S, 128, SG) in place of (S, SG, 128).
+
+``csrc/window_resample.cu`` runs one block per sub-group with the window in
+shared memory; its note says what bounds it. The sums telescope over up to
+W terms in another order than the plain version's reduction, so the two
+agree to f32 rounding of partial sums of that length, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops.resample_blocked import SUB
+
+_LIB = "pf_window_resample"
+_SOURCES = ("window_resample.cu",)
+_MAX_POS = 1 << 24  # positions compare in f32, exact below 2**24
+_MAX_W = 6144  # 2·W floats of shared memory stay within 48 KB
+
+
+def window_compare_sum_reference(s_win, d_win, *, sum_only=False, transpose=True):
+    """Plain version of X1: a dense (S, SG, 128, W) select-and-sum."""
+    n_super, sg, _ = s_win.shape
+    pos = torch.arange(n_super * sg * SUB, device=s_win.device, dtype=torch.float32)
+    C = s_win[..., None, :] <= pos.view(n_super, sg, SUB, 1)
+    vals = torch.ones_like(s_win) if sum_only else d_win[:, :, 0]
+    out = torch.where(C, vals[:, :, None, :], 0.0).sum(-1)
+    return out if transpose else out.transpose(1, 2).contiguous()
+
+
+def _check(s_win: torch.Tensor, d_win: torch.Tensor) -> None:
+    if s_win.ndim != 3 or d_win.shape != (*s_win.shape[:2], 1, s_win.shape[2]):
+        raise ValueError(
+            f"need s_win (S, SG, W) and d_win (S, SG, 1, W); got "
+            f"{tuple(s_win.shape)}, {tuple(d_win.shape)}."
+        )
+    n_super, sg, w = s_win.shape
+    if w % SUB or not 0 < w <= _MAX_W:
+        raise ValueError(f"W must be a multiple of {SUB} up to {_MAX_W}; got {w}.")
+    if n_super * sg * SUB > _MAX_POS:
+        raise ValueError("S·SG·128 must not exceed 2**24: positions compare in f32.")
+    if s_win.dtype != torch.float32 or d_win.dtype != torch.float32:
+        raise TypeError(f"need float32 windows; got {s_win.dtype}, {d_win.dtype}.")
+    if s_win.device != d_win.device:
+        raise ValueError("s_win and d_win must be on one device.")
+    if not (s_win.is_contiguous() and d_win.is_contiguous()):
+        raise ValueError("s_win and d_win must be contiguous.")
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library(_LIB, *_SOURCES)
+    fn = lib.pf_window_compare_sum
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def window_compare_sum(s_win: torch.Tensor, d_win: torch.Tensor, *,
+                       sum_only: bool = False, transpose: bool = True) -> torch.Tensor:
+    """X1 on (S, SG, W) f32 starts ``s_win`` and (S, SG, 1, W) f32 diffs
+    ``d_win``: (S, SG, 128) with ``transpose``, else (S, 128, SG).
+
+    A CUDA tensor goes through the kernel; a CPU tensor through its plain
+    version. ``window_compare_sum.launches`` counts kernel launches.
+    """
+    _check(s_win, d_win)
+    if s_win.device.type == "cpu":
+        return window_compare_sum_reference(
+            s_win, d_win, sum_only=sum_only, transpose=transpose)
+    if s_win.device.type != "cuda":
+        raise ValueError(f"unsupported device {s_win.device}.")
+    lib = _library()
+    n_super, sg, w = s_win.shape
+    shape = (n_super, sg, SUB) if transpose else (n_super, SUB, sg)
+    out = torch.empty(shape, dtype=torch.float32, device=s_win.device)
+    with torch.cuda.device(s_win.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pf_window_compare_sum(
+            s_win.data_ptr(), d_win.data_ptr(), out.data_ptr(), n_super * sg, sg, w,
+            int(sum_only), int(transpose), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"X1 window kernel launch failed: CUDA error {err}.")
+    window_compare_sum.launches += 1
+    return out
+
+
+window_compare_sum.launches = 0

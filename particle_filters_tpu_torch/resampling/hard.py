@@ -2,10 +2,11 @@
 residual (PyTorch port of ``particle_filters_tpu/resampling/hard.py``).
 
 One inverse-CDF convention, :func:`_child_run_ends`, defines systematic
-ancestry for the index, count and value paths alike. The cdf is a plain
-``torch.cumsum``: the JAX package's ``blocked_cumsum`` was a TPU workaround
-whose summation order differs, so run ends can differ by ±1 at rare ceil
-boundaries; on a shared cdf and u they are integer-equal.
+ancestry for the index, count and value paths alike. The cdf is a
+``torch.cumsum`` kept nondecreasing (:func:`_cdf`; the card's parallel scan
+can round a partial sum down): the JAX package's ``blocked_cumsum`` was a
+TPU workaround whose summation order differs, so run ends can differ by ±1
+at rare ceil boundaries; on a shared cdf and u they are integer-equal.
 
 All functions take normalized linear weights ``w`` or log-weights ``logw``
 and draw their uniforms from the caller's ``torch.Generator``, which must
@@ -41,6 +42,32 @@ def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
     return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
+_ROW = 256  # row width of the running maximum
+
+
+def _running_max(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cummax(x, 0).values`` of a 1-D tensor, over rows of 256:
+    the card scans one long row serially, many short rows in parallel; the
+    rows' running maxima carry between them."""
+    n = x.shape[0]
+    if n <= _ROW:
+        return torch.cummax(x, dim=0).values
+    rows = -(-n // _ROW)
+    padded = torch.cat([x, x[-1:].expand(rows * _ROW - n)]).view(rows, _ROW)
+    within = torch.cummax(padded, dim=1).values
+    carry = _running_max(within[:, -1])  # the maximum up to each row's end
+    out = torch.cat([within[:1], torch.maximum(within[1:], carry[:-1, None])])
+    return out.view(-1)[:n]
+
+
+def _cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The nondecreasing cumulative sum of ``weights``. On the card
+    ``torch.cumsum`` is a parallel scan that can round a partial sum below
+    its predecessor where a weight is under one ulp of it; the running
+    maximum undoes that, and is the identity where the scan is sequential."""
+    return _running_max(torch.cumsum(weights, dim=0))
+
+
 def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """idx[i] = smallest j with positions[i] < cdf[j]."""
     n = cdf.shape[0]
@@ -57,7 +84,7 @@ def _child_run_ends_u(weights: torch.Tensor, m: int, u: torch.Tensor) -> torch.T
             f"max(N, M) = {max(n, m)} > 2**24: f32 run ends are inexact there; "
             "the exact integer path is not ported yet."
         )
-    cdf = torch.cumsum(weights, dim=0)
+    cdf = _cdf(weights)
     cdf = cdf / cdf[-1]
     t = torch.ceil(m * cdf - u)
     return t.clamp_(0.0, m).to(torch.int32)
@@ -135,7 +162,7 @@ def stratified_resample(
     m = num_samples or weights.shape[0]
     u = _uniform(generator, (m,), weights)
     positions = (u + torch.arange(m, dtype=weights.dtype, device=weights.device)) / m
-    return _inverse_cdf(torch.cumsum(weights, dim=0), positions)
+    return _inverse_cdf(_cdf(weights), positions)
 
 
 def multinomial_resample(
@@ -150,7 +177,7 @@ def multinomial_resample(
     weights = _weights_from(w, logw)
     m = num_samples or weights.shape[0]
     u, _ = torch.sort(_uniform(generator, (m,), weights))
-    idx_sorted = _inverse_cdf(torch.cumsum(weights, dim=0), u)
+    idx_sorted = _inverse_cdf(_cdf(weights), u)
     perm = torch.randperm(m, generator=generator, device=weights.device)
     return idx_sorted[perm]
 

@@ -56,7 +56,7 @@ class SV1DResults:
         )
 
     @classmethod
-    def load(cls, filename: str, device=None) -> "SV1DResults":
+    def load(cls, filename: str, device="cuda") -> "SV1DResults":
         target = filename if filename.endswith(".npz") else f"{filename}.npz"
         with np.load(target) as d:
             seed = int(d["seed"])
@@ -97,11 +97,12 @@ def simulate_sv_1d(
     seed: Optional[int] = None,
     x0: Optional[float] = None,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> SV1DResults:
     """Simulate the 1-D SV model, with the JAX package's input validation
     and stationary initialization. The AR(1) recursion runs on the host
-    (n scalar steps) and the result is moved to ``device``."""
+    (n scalar steps) and the result is moved to ``device``, the card
+    unless ``device="cpu"``."""
     if n <= 0:
         raise ValueError("n must be positive.")
     if not np.isfinite(alpha) or abs(alpha) >= 1:

@@ -1,10 +1,14 @@
-"""Kernels B1 and B2 against their plain versions on an NVIDIA GPU.
+"""Kernels B1 and B2 and probes X1-X3 against their plain versions on an
+NVIDIA GPU.
 
 The checks of ``chip_smoke.py`` (B2 bit-equal to its plain version at the
 weight regimes of the TPU kernel's tiers; B1 with injected normals at
 rtol 1e-5 / atol 1e-6, its combined moments at rtol 1e-4, and its Philox
-normals' mean and variance within 5 standard errors) at a small N, plus the
-launch counters; N = 3000 leaves a ragged last block. Run on a GPU host with
+normals' mean and variance within 5 standard errors; X3 bit-equal; X1's
+variants and X2 within 1e-5, X2 also against B2) at a small N, plus the
+launch counters; N = 3000 leaves a ragged last block, and the probes, which
+take whole super-groups, run at 3·2^14 beside a power of two. Run on a GPU
+host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -50,3 +54,42 @@ def test_b1_kernel_matches_plain(cuda_device, n):
     torch.cuda.synchronize()
     assert err < 1e-3
     assert fused_step.launches == before + 6  # 2 models x (2 injected + 1 drawn)
+
+
+PROBE_SIZES = [1 << 16, 3 << 14]
+
+
+def test_x3_kernel_equals_plain(cuda_device):
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.launch_probe import add_one
+
+    before = add_one.launches
+    assert chip_smoke.check_x3(cuda_device) == 0.0
+    torch.cuda.synchronize()
+    assert add_one.launches == before + 1
+
+
+@pytest.mark.parametrize("n", PROBE_SIZES)
+def test_x1_kernel_matches_plain(cuda_device, n):
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.window_resample import window_compare_sum
+
+    before = window_compare_sum.launches
+    assert chip_smoke.check_x1(n, cuda_device) <= chip_smoke.PROBE_TOL
+    torch.cuda.synchronize()
+    assert window_compare_sum.launches == before + 6  # the six variants
+
+
+@pytest.mark.parametrize("n", PROBE_SIZES)
+def test_x2_kernel_matches_plain_and_b2(cuda_device, n):
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.span_resample import span_compare_sum
+
+    before = span_compare_sum.launches
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    assert chip_smoke.check_x2(gen, n, cuda_device) <= chip_smoke.PROBE_TOL
+    torch.cuda.synchronize()
+    assert span_compare_sum.launches == before + 8  # four regimes on its path, twice each

@@ -71,7 +71,7 @@ def test_fused_step_reference_matches_jax_weights(nx, uniform):
         model, Q = SVModel(ALPHA, BETA), np.array([[SIGMA**2]], np.float32)
     else:
         model, Q = LinearObsFirstModel(A2, R2), Q2
-    _, Lq = params_from_jax(Q)
+    _, Lq = params_from_jax(Q, device="cpu")
     x = (0.5 + rng.standard_normal((nx, n))).astype(np.float32)
     lw = (rng.standard_normal(n) - math.log(n)).astype(np.float32)
     eps = rng.standard_normal((nx, n)).astype(np.float32)
@@ -106,7 +106,7 @@ def test_fused_step_reference_matches_jax_weights(nx, uniform):
 
 
 def test_fused_step_wrapper_cpu_path_and_checks():
-    f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=512)
+    f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=512, device="cpu")
     x, lw, off_u = f.initialize(torch.Generator().manual_seed(0), [0.0], [[0.3]])
     x = x.view(1, -1)
     z = torch.tensor([0.2])
@@ -121,9 +121,9 @@ def test_fused_step_wrapper_cpu_path_and_checks():
     with pytest.raises(ValueError):
         fused_step(x, lw[:-1], off_u, z, f.Lq, f.params, f.model, seed=5)
     with pytest.raises(ValueError, match="nx <= 10"):
-        FusedSIRFilter(LinearObsFirstModel(np.eye(11), 1.0), np.eye(11), Np=64)
+        FusedSIRFilter(LinearObsFirstModel(np.eye(11), 1.0), np.eye(11), Np=64, device="cpu")
     with pytest.raises(ValueError, match="model.nx"):
-        FusedSIRFilter(SVModel(ALPHA), np.eye(2), Np=64)
+        FusedSIRFilter(SVModel(ALPHA), np.eye(2), Np=64, device="cpu")
 
 
 def test_forced_resample_lazy_carry_is_uniform():
@@ -131,7 +131,7 @@ def test_forced_resample_lazy_carry_is_uniform():
     uniform flag; effective_logw materializes −log N."""
     for model, Q, z in ((SVModel(ALPHA), [[SIGMA**2]], [[3.0], [3.0]]),
                         (LinearObsFirstModel(A2, R2), Q2, [[1.5], [1.5]])):
-        f = FusedSIRFilter(model, Q, Np=1024, resample_thresh=2.0)
+        f = FusedSIRFilter(model, Q, Np=1024, resample_thresh=2.0, device="cpu")
         gen = torch.Generator().manual_seed(1)
         st = f.initialize(gen, np.zeros(model.nx), np.eye(model.nx))
         st, hist = f.run(gen, st, z)
@@ -146,7 +146,7 @@ def test_state_from_jax_round_trip(key, nx):
     jst = jf.initialize(key, np.zeros(nx), 0.3 * np.eye(nx))
     # a pending log-normalizer, so effective_logw has work to do
     jst = (jst[0], jst[1] + 0.5, jnp.array([0.5, 0.0], jnp.float32))
-    tst = state_from_jax(tuple(np.asarray(a) for a in jst))
+    tst = state_from_jax(tuple(np.asarray(a) for a in jst), device="cpu")
     assert tst[0].shape == ((1024,) if nx == 1 else (nx, 1024))
     assert tst[1].shape == (1024,)
     # the (8, N/8) layout is read row-major; (nx, N) stays
@@ -154,7 +154,7 @@ def test_state_from_jax_round_trip(key, nx):
     np.testing.assert_array_equal(tst[1].numpy().reshape(jst[1].shape), np.asarray(jst[1]))
     np.testing.assert_array_equal(tst[2].numpy(), np.asarray(jst[2]))
     model = SVModel(ALPHA) if nx == 1 else LinearObsFirstModel(A2, R2)
-    tf = FusedSIRFilter(model, [[SIGMA**2]] if nx == 1 else Q2, Np=1024)
+    tf = FusedSIRFilter(model, [[SIGMA**2]] if nx == 1 else Q2, Np=1024, device="cpu")
     np.testing.assert_allclose(
         tf.effective_logw(tst).numpy(),
         np.asarray(jf.effective_logw(jst)).reshape(-1), rtol=1e-6,
@@ -175,7 +175,7 @@ def test_whole_filter_matches_jax_fused(key, sv_data, nx):
         zs = np.asarray(sv_data.Y[:T, None])
         xs = np.asarray(sv_data.X[:T])
         jf = _jax_sv_fused(n, block=1024)
-        tf = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=n)
+        tf = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=n, device="cpu")
         m0, c0 = np.zeros(1), np.array([[0.21]])
     else:
         rng = np.random.default_rng(0)
@@ -187,7 +187,7 @@ def test_whole_filter_matches_jax_fused(key, sv_data, nx):
             xs[t] = x
         zs = (xs[:, :1] + np.sqrt(R2) * rng.standard_normal((T, 1))).astype(np.float32)
         jf = _jax_nx2_fused(n, block=1024)
-        tf = FusedSIRFilter(LinearObsFirstModel(A2, R2), Q2, Np=n)
+        tf = FusedSIRFilter(LinearObsFirstModel(A2, R2), Q2, Np=n, device="cpu")
         m0, c0 = np.zeros(2), 0.3 * np.eye(2)
 
     jst = jf.initialize(key, m0, c0)

@@ -30,7 +30,7 @@ def _sv_pair(Np, **kw):
     Q = np.array([[SIGMA**2]], np.float32)
     jpf = JaxPF(lambda x, u: ALPHA * x, None, Q, None, Np=Np, obs_loglik=_sv_jax_obs, **kw)
     tpf = ParticleFilter(lambda x, u: ALPHA * x, None, Q, None, Np=Np,
-                         obs_loglik=_sv_torch_obs, **kw)
+                         obs_loglik=_sv_torch_obs, device="cpu", **kw)
     return jpf, tpf
 
 
@@ -39,7 +39,8 @@ def _linear_pair(small_system, Np, **kw):
     A = s["A"]
     jpf = JaxPF(lambda x, u: jnp.asarray(A) @ x, lambda x: x, s["Q"], s["R"], Np=Np, **kw)
     At = torch.from_numpy(A)
-    tpf = ParticleFilter(lambda x, u: At @ x, lambda x: x, s["Q"], s["R"], Np=Np, **kw)
+    tpf = ParticleFilter(lambda x, u: At @ x, lambda x: x, s["Q"], s["R"], Np=Np,
+                         device="cpu", **kw)
     return jpf, tpf
 
 
@@ -67,7 +68,7 @@ def test_update_without_resampling(key, small_system, model):
     st = jpf.update(jax.random.fold_in(key, 2), st, jnp.asarray(z))  # non-uniform weights
     j_new, j_diag = jpf.update(jax.random.fold_in(key, 3), st, jnp.asarray(z),
                                return_diagnostics=True)
-    t_new, t_diag = tpf.update(torch.Generator(), state_from_jax(st), z,
+    t_new, t_diag = tpf.update(torch.Generator(), state_from_jax(st, device="cpu"), z,
                                return_diagnostics=True)
     assert not bool(j_diag["resampled"]) and not t_diag["resampled"]
     for name in ("log_weights", "mean", "cov", "particles"):
@@ -150,4 +151,4 @@ def test_unported_options_raise():
         tpf.run(gen, tpf.initialize(gen, [0.0], [[1.0]]), np.zeros((2, 1)),
                 track_degeneracy=True)
     with pytest.raises(ValueError, match="obs_loglik"):
-        ParticleFilter(lambda x, u: x, None, np.eye(1), None)
+        ParticleFilter(lambda x, u: x, None, np.eye(1), None, device="cpu")

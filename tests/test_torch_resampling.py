@@ -57,6 +57,16 @@ def test_child_run_ends_end_to_end_rare_shifts():
     assert np.mean(diff > 0) <= 1e-3
 
 
+@pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 3000, (1 << 20) + 3])
+def test_running_max_equals_cummax(n):
+    """The two-level running maximum that keeps the cdf nondecreasing (the
+    card's parallel cumsum can round a partial sum down) is torch.cummax."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    assert torch.equal(thard._running_max(x), torch.cummax(x, 0).values)
+    t = x.to(torch.int32)
+    assert torch.equal(thard._running_max(t), torch.cummax(t, 0).values)
+
+
 def test_inexact_sizes_raise():
     with pytest.raises(NotImplementedError):
         thard._child_run_ends_u(torch.ones(4) / 4, (1 << 24) + 1, torch.tensor(0.5))

@@ -35,13 +35,13 @@ def test_recursion_with_injected_noise_matches_numpy():
 
 
 def test_simulate_shapes_seed_and_stationarity():
-    a = tsv.simulate_sv_1d(20000, 0.9, 0.3, 1.0, seed=3)
-    b = tsv.simulate_sv_1d(20000, 0.9, 0.3, 1.0, seed=3)
+    a = tsv.simulate_sv_1d(20000, 0.9, 0.3, 1.0, seed=3, device="cpu")
+    b = tsv.simulate_sv_1d(20000, 0.9, 0.3, 1.0, seed=3, device="cpu")
     assert a.X.shape == a.Y.shape == (20000,) and a.X.dtype == torch.float32
     assert torch.equal(a.X, b.X) and a.seed == 3 and a.n == 20000
     var0 = 0.3**2 / (1 - 0.9**2)
     assert abs(float(a.X.var()) / var0 - 1) < 0.15
-    fixed = tsv.simulate_sv_1d(5, 0.9, 0.3, 1.0, x0=2.0)
+    fixed = tsv.simulate_sv_1d(5, 0.9, 0.3, 1.0, x0=2.0, device="cpu")
     assert float(fixed.X[0]) == 2.0 and fixed.seed == 0
 
 
@@ -66,12 +66,12 @@ def test_validation_errors_match_jax(kw, match):
 def test_npz_cross_load(tmp_path):
     j = jsv.simulate_sv_1d(50, 0.9, 0.2, 1.0, seed=5)
     j.save(str(tmp_path / "from_jax"))
-    t = tsv.SV1DResults.load(str(tmp_path / "from_jax"))
+    t = tsv.SV1DResults.load(str(tmp_path / "from_jax"), device="cpu")
     np.testing.assert_array_equal(t.X.numpy(), np.asarray(j.X))
     np.testing.assert_array_equal(t.Y.numpy(), np.asarray(j.Y))
     assert (t.alpha, t.sigma, t.beta, t.n, t.seed) == (j.alpha, j.sigma, j.beta, j.n, j.seed)
 
-    p = tsv.simulate_sv_1d(40, 0.8, 0.1, 2.0)
+    p = tsv.simulate_sv_1d(40, 0.8, 0.1, 2.0, device="cpu")
     p.save(str(tmp_path / "from_torch.npz"))
     back = jsv.SV1DResults.load(str(tmp_path / "from_torch.npz"))
     np.testing.assert_array_equal(np.asarray(back.X), p.X.numpy())
