@@ -6,19 +6,24 @@
 Builds every hand-written kernel from the sources in this checkout (B2 and
 the probes X1-X3 with nvcc into build/torch_kernels/, one nvcc per source,
 all started together; B1 by Triton) and holds each against its plain
-PyTorch version on the card at N = 2^20 (X1 and X2 within 1e-5: they
-telescope f32 differences in another order; X2 also against B2). Then:
+PyTorch version on the card at N = 2^20 (B2 also at N = 3000, a ragged last
+block; B1's row and its counter also after CUDA-graph replays; X1 and X2
+within 1e-5: they telescope f32 differences in another order; X2 also
+against B2). Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
   when ESS < N/2) through ``FusedSIRFilter`` and through the general
-  ``ParticleFilter``, checked, with B1 and B2 counted;
+  ``ParticleFilter``, checked, with B1 and B2 counted, and a run that
+  never resamples, which must launch B1 and no other kernel per step;
 - the profiling path: the small-N step decomposition
   (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
   variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
   (``benchmarks.exp_resample_dma``), with X1-X3 counted;
 - each kernel timed against its plain version, its bound and, where one
-  PyTorch call computes the same function, that call.
+  PyTorch call computes the same function, that call; B1 also with
+  injected normals and over its programs per SM, B2 also at a point mass,
+  X3 against ``torch.add`` in alternating pairs.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -49,11 +54,13 @@ from particle_filters_tpu_torch.ops import span_resample as x2
 from particle_filters_tpu_torch.ops import window_resample as x1
 from particle_filters_tpu_torch.ops.fused_pf import (
     FusedSIRFilter,
+    PROGRAMS_PER_SM,
     LinearObsFirstModel,
+    StepWork,
     SVModel,
-    _combine_partials,
     fused_step,
     fused_step_reference,
+    row_width,
 )
 from particle_filters_tpu_torch.ops.resample_blocked import fine_chunks
 from particle_filters_tpu_torch.resampling.hard import _systematic_starts
@@ -66,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two orders
 SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
+B2_RAGGED_N = 3000  # B2's checks again where the last block is ragged
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -101,14 +109,23 @@ def _time_ms(fn, reps: int = 10, samples: int = 5) -> float:
 
 
 # --- B2 -----------------------------------------------------------------------
+def _point_masses(n, device, *where):
+    w = torch.zeros(n, device=device)
+    w[list(where)] = 1.0
+    return w / w.sum()
+
+
 def _b2_cases(gen, n, device):
-    """(label, weights) at the regimes of the TPU kernel's three tiers."""
+    """(label, weights) at the regimes of the TPU kernel's three tiers and
+    at the edges of the merge: point masses at 0, N/3 and N-1 (long runs
+    of equal starts, and starts equal to N), and two point masses."""
     z = torch.randn(n, generator=gen, device=device)
     for sigma in (0.5, 2.0, 6.0):
         yield f"lognormal sigma={sigma}", torch.softmax(sigma * z, 0)
-    mass = torch.zeros(n, device=device)
-    mass[n // 3] = 1.0
-    yield "point mass", mass
+    yield "point mass at N/3", _point_masses(n, device, n // 3)
+    yield "point mass at 0", _point_masses(n, device, 0)
+    yield "point mass at N-1", _point_masses(n, device, n - 1)
+    yield "two point masses", _point_masses(n, device, n // 4, (3 * n) // 4)
 
 
 def check_b2(gen, n, device) -> float:
@@ -143,29 +160,66 @@ def _b1_inputs(gen, model, Q, n, device, uniform: bool):
     return f, x, lw, off_u, z
 
 
-def _moments(part, nx):
-    log_z, ess, mean, exx = _combine_partials(part, nx)
-    cov = exx.reshape(nx, nx) - torch.outer(mean, mean)
-    return torch.cat([log_z[None], ess[None], mean, cov.reshape(-1)])
+def _check_b1_finish(work, row, n, thresh, label):
+    """The counter is back to 0; the trigger and the carry match the row."""
+    _check(int(work.counter.item()) == 0, f"B1 counter reset ({label})")
+    want = int(bool(row[1] < thresh * n))  # in f32, as the kernel compares
+    _check(int(work.trigger.item()) == want, f"B1 trigger == (ess < thresh*N) ({label})")
+    _check(torch.equal(work.carry, torch.stack([row[0], torch.zeros_like(row[0])])),
+           f"B1 carry == (log_z, 0) ({label})")
+
+
+def _check_b1_graph(x, lw, off_u, z, f, model, eps, row_ref, thresh, label):
+    """B1 captured in a CUDA graph and replayed three times: its row still
+    matches the plain one and the counter is back to 0 after the replays."""
+    work = StepWork(model.nx, x.device)
+    row = torch.empty(row_width(model.nx), device=x.device)
+
+    def step():
+        fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=1, eps=eps,
+                   resample_thresh=thresh, work=work, row_out=row)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(row, row_ref, rtol=1e-4, atol=1e-6)
+    _check_b1_finish(work, row, x.shape[1], thresh, f"{label}, 3 graph replays")
 
 
 def check_b1(gen, n, device) -> float:
-    """Injected ε: B1 against its plain version. Drawn ε: normal statistics."""
+    """Injected ε: B1 against its plain version, its row, counter, trigger
+    and carry after one launch and after graph replays. Drawn ε: normal
+    statistics of every state row."""
     max_err = 0.0
     for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
         nx = model.nx
-        for uniform in (False, True):
+        for uniform, thresh in ((False, 0.5), (True, 0.9)):
+            label = f"nx={nx} uniform={uniform}"
             f, x, lw, off_u, z = _b1_inputs(gen, model, Q, n, device, uniform)
             eps = torch.randn((nx, n), generator=gen, device=device)
-            xk, lwk, pk = fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=1, eps=eps)
-            xr, lwr, pr = fused_step_reference(x, lw, off_u, z, eps, f.Lq, model)
+            work = StepWork(nx, device)
+            xk, lwk, rk = fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=1, eps=eps,
+                                     resample_thresh=thresh, work=work)
+            xr, lwr, rr = fused_step_reference(x, lw, off_u, z, eps, f.Lq, model)
             # Triton's exp/log and its reduction order differ from torch's.
             torch.testing.assert_close(xk, xr, rtol=1e-5, atol=1e-6)
             torch.testing.assert_close(lwk, lwr, rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(_moments(pk, nx), _moments(pr, nx), rtol=1e-4, atol=1e-6)
+            torch.testing.assert_close(rk, rr, rtol=1e-4, atol=1e-6)
+            _check_b1_finish(work, rk, n, thresh, label)
+            _check_b1_graph(x, lw, off_u, z, f, model, eps, rr, thresh, label)
             err = max((xk - xr).abs().max().item(), (lwk - lwr).abs().max().item())
             max_err = max(max_err, err)
-            print(f"B1 nx={nx} uniform={uniform}: max |kernel - plain| = {err:.3e} (N={n})")
+            print(f"B1 {label}: max |kernel - plain| = {err:.3e}, row within rtol 1e-4, "
+                  f"trigger {int(work.trigger.item())}, counter 0 after a launch and "
+                  f"3 graph replays (N={n})")
 
         f, x, lw, off_u, z = _b1_inputs(gen, model, Q, n, device, False)
         xk, _, _ = fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=12345)
@@ -309,6 +363,39 @@ def run_main_path(n, device):
     return counts, (f, gen, state0, zs)
 
 
+def check_step_launches(n, device):
+    """Runs that never resample launch B1 once a step and no other kernel
+    of their own a step: the other kernels (the run's set-up and history)
+    do not grow by one a step from T = 20 to T = 40."""
+    sv = simulate_sv_1d(40, ALPHA, SIGMA, BETA, seed=7, device=device)
+    f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=n, resample_thresh=0.0,
+                       device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    state0 = f.initialize(gen, [0.0], [[SIGMA**2 / (1 - ALPHA**2)]])
+    f.run(gen, state0, sv.Y[:2, None])  # warm-up
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    counts = {}
+    for t_len in (20, 40):
+        with torch.profiler.profile(activities=acts) as prof:
+            f.run(gen, state0, sv.Y[:t_len, None])
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+        if not kernels:
+            print("step launches: not measured (profiler saw no device time)")
+            return
+        b1 = sum(c for k, c in kernels if "_fused_step_kernel" in k)
+        others = [(k[:60], c) for k, c in kernels if "_fused_step_kernel" not in k]
+        counts[t_len] = sum(c for _, c in others)
+        _check(b1 == t_len, f"B1 launched {b1} times in {t_len} steps")
+        print(f"no-resample run N={n} T={t_len}: B1 x{b1}, other kernels {others}")
+    _check(counts[40] - counts[20] < 20,
+           f"kernels other than B1: {counts[20]} over 20 steps, {counts[40]} over 40")
+    print(f"no-resample runs N={n}: B1 once a step, other kernels {counts[20]} and "
+          f"{counts[40]} a run over T=20 and T=40 (none per step)")
+
+
 # --- the profiling path ------------------------------------------------------
 def run_profiling_path(device, card):
     """The small-N decomposition, X1's variants and X2 against B2, with the
@@ -365,13 +452,15 @@ def _rotating(fn, sets):
     return lambda: fn(*sets[next(it) % len(sets)])
 
 
-def _b1_timed(gen, n, device):
+def _b1_timed(gen, n, device, programs=None, eps=None):
     model = SVModel(ALPHA, BETA)
     f, *_ = _b1_inputs(gen, model, [[SIGMA**2]], n, device, False)
     sets = [_b1_inputs(gen, model, [[SIGMA**2]], n, device, False)[1:] for _ in range(8)]
+    work = StepWork(1, device, programs=programs)
 
     def kern(x, lw, off_u, z):
-        return fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=7)
+        return fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=7, eps=eps,
+                          work=work)
 
     def plain(x, lw, off_u, z):  # the plain step draws its normals too
         eps = torch.randn(x.shape, device=device)
@@ -384,8 +473,30 @@ def _b1_timed(gen, n, device):
     return kern, plain, None, sets, _bound(nbytes, 128 * n)
 
 
-def _b2_timed(gen, n, device):
-    w = torch.softmax(2.0 * torch.randn(n, generator=gen, device=device), 0)
+def time_b1_variants(gen, n, device, card) -> None:
+    """B1's device time over its programs per SM (the persistent grid), and
+    with injected normals (``READ_EPS``: the same pass without Philox and
+    Box-Muller, reading 4 B more a particle), in turns."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    eps = torch.randn((1, n), generator=gen, device=device)
+    variants = [(f"{k} programs/SM", k * sms, None) for k in (1, 2, 3, 4)]
+    variants.append((f"READ_EPS, {PROGRAMS_PER_SM} programs/SM", PROGRAMS_PER_SM * sms, eps))
+    fns = {}
+    for label, programs, e in variants:
+        kern, _, _, sets, bound = _b1_timed(gen, n, device, programs, e)
+        fns[label] = _rotating(kern, sets)
+    times = {label: [] for label in fns}
+    for label in list(fns) + list(fns)[::-1]:
+        times[label].append(_graph_ms(fns[label]))
+    for label, ts in times.items():
+        ms = sum(ts) / len(ts)
+        print(f"B1 at N={n}, {label}: device {ms:.6f} ms ({bound[0] / ms:.3f} of the "
+              f"{bound[0]:.6f} ms drawn-normals bound)  [{card}]")
+
+
+def _b2_timed(gen, n, device, w=None):
+    if w is None:
+        w = torch.softmax(2.0 * torch.randn(n, generator=gen, device=device), 0)
     sets = []
     for _ in range(8):
         starts = _systematic_starts(gen, w, n)
@@ -400,10 +511,29 @@ def _b2_timed(gen, n, device):
     _check(torch.equal(library(*sets[0]), b2.resample_by_starts(p, starts)),
            "repeat_interleave == B2 (the library call computes B2's function)")
     nbytes = _nbytes(p, starts, p)  # p and starts in, the values out
-    ops = 2 * math.ceil(math.log2(n)) * n  # a compare and a select per probe
+    ops = 2 * (2 * n)  # a compare and a select per merge item (N starts, N outputs)
     return (lambda p, s, c: b2.resample_by_starts(p, s),
             lambda p, s, c: b2.resample_by_starts_reference(p, s), library, sets,
             _bound(nbytes, ops))
+
+
+def time_b2_balance(gen, n, device, card) -> None:
+    """B2's device time at a point mass beside lognormal sigma = 2, in turns:
+    a load-balanced kernel takes about the same at both."""
+    fns = {}
+    for label, w in (("sigma=2", None), ("point mass at N/3", _point_masses(n, device, n // 3))):
+        kern, _, library, sets, _ = _b2_timed(gen, n, device, w)
+        fns[label] = (_rotating(kern, sets), _rotating(library, sets))
+    times = {label: ([], []) for label in fns}
+    for label in list(fns) + list(fns)[::-1]:
+        times[label][0].append(_graph_ms(fns[label][0]))
+        times[label][1].append(_graph_ms(fns[label][1]))
+    ms = {label: sum(k) / len(k) for label, (k, _) in times.items()}
+    for label, (k, lib) in times.items():
+        print(f"B2 at N={n}, {label}: device {sum(k) / len(k):.6f} ms, repeat_interleave "
+              f"{sum(lib) / len(lib):.6f} ms  [{card}]")
+    ratio = ms["point mass at N/3"] / ms["sigma=2"]
+    print(f"B2 point mass / sigma=2: {ratio:.3f}  [{card}]")
 
 
 def _x1_timed(gen, n, device):
@@ -461,6 +591,26 @@ def time_kernels(gen, n, device, card):
     return out
 
 
+def time_x3_pairs(gen, card, pairs: int = 7):
+    """X3 and ``torch.add(x, 1)`` on its tile, one graph timing of each in
+    turn, ``pairs`` times; prints and returns each one's median (ms), with
+    the quartiles printed beside it."""
+    x = torch.randn(x3.TILE, generator=gen, device="cuda")
+    samples = {"X3": [], "torch.add": []}
+    for i in range(pairs):
+        order = (("X3", x3.add_one), ("torch.add", lambda t: torch.add(t, 1)))
+        for label, fn in order if i % 2 == 0 else order[::-1]:
+            samples[label].append(_graph_ms(lambda: fn(x)))
+    medians = {}
+    for label, ts in samples.items():
+        q1, med, q3 = statistics.quantiles(ts, n=4)
+        medians[label] = statistics.median(ts)
+        print(f"{label} on its (8, 128) tile, {pairs} pairs in turn: median "
+              f"{medians[label] * 1e3:.4f} us, quartiles {q1 * 1e3:.4f} - {q3 * 1e3:.4f} us"
+              f"  [{card}]")
+    return medians["X3"], medians["torch.add"]
+
+
 def time_fused_run(n, card, fused_run) -> None:
     """Wall time of the whole fused run, and what the card spent it on."""
     filt, gen, state0, zs = fused_run
@@ -481,7 +631,7 @@ def time_fused_run(n, card, fused_run) -> None:
     print(f"fused run device busy {busy_ms:.3f} ms of {run_ms:.3f} ms wall "
           f"({busy_ms / run_ms:.3f}; unprofiled wall)  [{card}]")
     ported_ms = 0.0
-    for label, kernel in (("B1", "_fused_step_kernel"), ("B2", "resample_by_starts_kernel")):
+    for label, kernel in (("B1", "_fused_step_kernel"), ("B2", "merge_path_resample_kernel")):
         hits = [r for r in rows if kernel in r[2]]
         ms, count = sum(r[0] for r in hits) / 1e3, sum(r[1] for r in hits)
         ported_ms += ms
@@ -526,13 +676,19 @@ def main() -> None:
     gen = torch.Generator(device=device).manual_seed(2024)
 
     _build_all(gen)
-    errs = {"B2": check_b2(gen, N, device), "B1": check_b1(gen, N, device),
-            "X3": check_x3(device), "X1": check_x1(N, device), "X2": check_x2(gen, N, device)}
+    errs = {"B2": max(check_b2(gen, N, device), check_b2(gen, B2_RAGGED_N, device)),
+            "B1": check_b1(gen, N, device), "X3": check_x3(device),
+            "X1": check_x1(N, device), "X2": check_x2(gen, N, device)}
     torch.cuda.synchronize()
 
     counts, fused_run = run_main_path(N, device)
+    check_step_launches(N, device)
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)
+    time_b1_variants(gen, N, device, card)
+    time_b2_balance(gen, N, device, card)
+    x3_ms, add_ms = time_x3_pairs(gen, card)
+    times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
     time_fused_run(N, card, fused_run)
 
     rows = (

@@ -5,7 +5,10 @@
 - ``exp_kernel_var``: the windowed compare-and-sum variants (probe X1,
   ``ops/window_resample.py``);
 - ``exp_resample_dma``: the span-staged resample (probe X2,
-  ``ops/span_resample.py``) against kernel B2.
+  ``ops/span_resample.py``) against kernel B2;
+- ``b2_phases``: kernel B2's device time phase by phase, from copies of its
+  source cut after each phase.
 
-All time by the slope protocol of ``_slope``. Importing runs nothing.
+The first three time by the slope protocol of ``_slope``, ``b2_phases`` by
+CUDA-graph replay. Importing runs nothing.
 """

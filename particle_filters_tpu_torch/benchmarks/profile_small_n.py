@@ -8,9 +8,10 @@ time:
   full         ``FusedSIRFilter.run``, resample when ESS < N/2 (SV model)
   no-resample  the same with threshold 0: the resample is never taken,
                but its test (one device→host read per step) stays
-  kernel+comb  ``fused_step`` (kernel B1) then ``_combine_partials``, the
-               row folded into the carry
-  kernel-only  ``fused_step`` alone
+  kernel+comb  ``fused_step`` (kernel B1) with its in-kernel row folded into
+               the carry: each step's ``off_u`` is the previous step's
+               ``(log_z, 0)``, and the row lands in a preallocated history
+  kernel-only  ``fused_step`` alone, on a fixed ``off_u``
   minimal      ``c * 1.0000001 + 1e-12`` on a same-shape tensor: the
                floor of a loop of small torch ops (two launches a step;
                XLA fused them into one)
@@ -21,8 +22,10 @@ The eager slope of each variant is what a Python loop pays. The four
 variants with no host read per step are also captured in a CUDA graph and
 replayed (``graph_slope``): the card's own time per step, which bounds what
 capturing the filter's step could recover. The JAX script's ``block`` knob
-(particles per Pallas grid step) has no counterpart: kernel B1's block is
-``ops.fused_pf.block_size(nx)``.
+(particles per Pallas grid step) has no counterpart: kernel B1 runs a
+persistent grid of ``ops.fused_pf.PROGRAMS_PER_SM`` programs per SM and
+finishes the moments in its last program, so "combine" (kernel+comb minus
+kernel-only) is what chaining the carry costs.
 
 Run on a GPU host, at the JAX script's loop lengths (m 100 → 1700, best of
 4)::
@@ -40,9 +43,10 @@ import torch
 from particle_filters_tpu_torch.benchmarks._slope import graph_slope, slope
 from particle_filters_tpu_torch.ops.fused_pf import (
     FusedSIRFilter,
+    StepWork,
     SVModel,
-    _combine_partials,
     fused_step,
+    row_width,
 )
 from particle_filters_tpu_torch.ops.launch_probe import TILE, add_one
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
@@ -76,23 +80,22 @@ def loop_builders(n, device, ys):
             return torch.sum(hist["mean"]) + pt[0]
         return run
 
-    def build_kernel(m, with_combine):
+    def build_kernel(m, with_carry):
         zs = ys[:m, None].contiguous()
         gen = torch.Generator(device=device).manual_seed(3)
         seeds = pf._draw_seeds(gen, m)
         off0 = torch.zeros(2, device=device)
+        work = StepWork(1, device)
+        rows = torch.empty((m, row_width(1)), device=device)
 
         def run():
-            x, lw = state0[0].view(1, n), state0[1]
+            x, lw, off = state0[0].view(1, n), state0[1], off0
             for t in range(m):
-                x2, lw, part = fused_step(x, lw, off0, zs[t], pf.Lq, pf.params,
-                                          pf.model, seed=seeds[t])
-                if with_combine:
-                    log_z, ess, mean, exx = _combine_partials(part, 1)
-                    row = torch.cat([log_z[None], ess[None], mean, exx])
-                    x2 = x2 + 1e-30 * torch.sum(row)
-                x = x2
-            return x[0, 0] + lw[0]
+                x, lw, _ = fused_step(x, lw, off, zs[t], pf.Lq, pf.params, pf.model,
+                                      seed=seeds[t], work=work, row_out=rows[t])
+                if with_carry:
+                    off = work.carry
+            return x[0, 0] + lw[0] + rows[-1, 0]
         return run
 
     def build_minimal(m):

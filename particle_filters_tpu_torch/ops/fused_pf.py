@@ -1,17 +1,21 @@
 """Fused SIR filter on kernel B1 (PyTorch port of
 ``particle_filters_tpu/ops/fused_pf.py``).
 
-Each step is one pass over the particle arrays:
+Each step is one launch over the particle arrays:
 
-    normals → x' = g(x) + Lq·ε → Δlogw = obs_ll(x', z)
-    → per-program weight partials (max, Σe, Σe², Σe·x, Σe·x⊗x)
+    normals → x' = g(x) + Lq·ε → Δlogw = obs_ll(x', z) → weight moments
+    → the packed row [log_z, ess, mean (nx), Σw·x⊗x (nx²)],
+      the no-resample carry (log_z, 0) and the trigger ess < thresh·N
 
 on a CUDA tensor by the Triton kernel B1 (``_fused_pf_triton.py``, whose
-note says what bounds it and why it is Triton), on a CPU tensor by its plain
-version :func:`fused_step_reference`. Weight normalization is lazy, as in
-the JAX package: the carry is ``(particles, logw, off_u)`` with
+note says what bounds it, why it is Triton and how its last program
+finishes the moments), on a CPU tensor by its plain version
+:func:`fused_step_reference` (block partials folded by
+:func:`_combine_partials`). Weight normalization is lazy, as in the JAX
+package: the carry is ``(particles, logw, off_u)`` with
 ``off_u = (pending log-Z, uniform flag)``, and the next step folds both into
-its load. The partials are combined by :func:`_combine_partials`.
+its load. What a caller keeps across launches (the kernel's ticket counter,
+its partials rows, the carry and the trigger) is a :class:`StepWork`.
 
 Layout: particles are (N,) for nx = 1 and (nx, N) for nx > 1, log-weights
 (N,). The JAX package's (8, N/8) layout and 128-lane observation padding
@@ -19,7 +23,7 @@ were TPU layout choices and are not carried over.
 
 Resampling goes through kernel B2 (via ``systematic_resample_values`` of
 ``resampling/hard.py``). Whether a step resamples is decided on the host
-from the ESS in the combined row: one device→host sync per step, where the
+from the kernel's trigger: one 4-byte device→host read per step, where the
 JAX package branches on the device with ``lax.cond``.
 
 Models are pointwise: an object with ``nx``, ``params`` (the model's
@@ -57,8 +61,9 @@ class SVModel:
         return self.params[0] * x
 
     def obs_loglik(self, x, z):
-        var = self.params[1] ** 2 * torch.exp(x[0])
-        return -0.5 * (z[0] * z[0] / var + torch.log(var))
+        # −½(z²/β²·e⁻ˣ + log(β² eˣ)), spelled as the kernel spells it.
+        beta = self.params[1]
+        return -0.5 * (z[0] * z[0] / beta**2 * torch.exp(-x[0]) + x[0] + 2 * math.log(beta))
 
     @property
     def g_tl(self):
@@ -108,8 +113,13 @@ class LinearObsFirstModel:
 
 
 # --- kernel B1, its plain version, and the combine -------------------------
+# Programs of B1 per SM: its persistent grid (chip_smoke.py's sweep, PERF.md).
+PROGRAMS_PER_SM = 2
+
+
 def block_size(nx: int) -> int:
-    """Particles per program: 1024 at nx = 1, fewer as the tile grows."""
+    """Particles per partials row of the plain version: 1024 at nx = 1,
+    fewer as the tile grows."""
     nxp = 1 << (nx - 1).bit_length()
     return max(128, 1024 // nxp)
 
@@ -118,106 +128,16 @@ def partials_width(nx: int) -> int:
     return 3 + nx + nx * nx
 
 
+def row_width(nx: int) -> int:
+    """Width of the packed row ``[log_z, ess, mean (nx), Σw·x⊗x (nx²)]``."""
+    return 2 + nx + nx * nx
+
+
 def noise_factor(Q) -> np.ndarray:
     """f32 ``Lq = cholesky(Q + 1e-10·I)``, taken in numpy as the JAX fused
     filter takes it."""
     Q = np.asarray(Q, np.float32)
     return np.linalg.cholesky(Q + 1e-10 * np.eye(Q.shape[0])).astype(np.float32)
-
-
-def fused_step_reference(x, lw, off_u, z, eps, Lq, model):
-    """Plain version of B1 with injected normals ``eps`` (nx, N).
-
-    Returns ``(x', lw', partials)``: x' (nx, N), lw' (N,) and one partials
-    row per block of ``block_size(nx)`` particles, in the kernel's row format.
-    """
-    nx, n = x.shape
-    block = block_size(nx)
-    noise = sum(Lq[:, j : j + 1] * eps[j] for j in range(nx))
-    x_new = model.g(x) + noise
-    lw_in = torch.where(off_u[1] > 0.5, -math.log(n), lw - off_u[0])
-    lw_new = lw_in + model.obs_loglik(x_new, z)
-
-    nb = -(-n // block)
-    pad = nb * block - n
-    lw_b = torch.nn.functional.pad(lw_new, (0, pad), value=float("-inf")).view(nb, block)
-    x_b = torch.nn.functional.pad(x_new, (0, pad)).view(nx, nb, block)
-    m = lw_b.max(dim=1).values
-    m = torch.where(m > float("-inf"), m, torch.zeros_like(m))
-    e = torch.exp(lw_b - m[:, None])  # (nb, block); padding gives 0
-    ex = (x_b * e).sum(-1).T  # (nb, nx)
-    exx = (x_b[:, None] * x_b[None, :] * e).sum(-1)  # (nx, nx, nb)
-    partials = torch.cat(
-        [
-            m[:, None],
-            e.sum(-1, keepdim=True),
-            (e * e).sum(-1, keepdim=True),
-            ex,
-            exx.permute(2, 0, 1).reshape(nb, nx * nx),
-        ],
-        dim=1,
-    )
-    return x_new, lw_new, partials
-
-
-def _check_step_args(x, lw, off_u, z, Lq, params, eps):
-    nx, n = x.shape
-    tensors = {"x": x, "lw": lw, "off_u": off_u, "z": z, "Lq": Lq, "params": params}
-    if eps is not None:
-        tensors["eps"] = eps
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32; got {t.dtype}.")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}.")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous.")
-    if lw.shape != (n,) or off_u.shape != (2,) or Lq.shape != (nx, nx):
-        raise ValueError(
-            f"shapes: lw {tuple(lw.shape)} (want ({n},)), off_u "
-            f"{tuple(off_u.shape)} (want (2,)), Lq {tuple(Lq.shape)} "
-            f"(want ({nx}, {nx}))."
-        )
-    if eps is not None and eps.shape != x.shape:
-        raise ValueError(f"eps must be {tuple(x.shape)}; got {tuple(eps.shape)}.")
-    if nx > _MAX_NX or nx * n >= 2**31:
-        raise ValueError("need nx <= 10 and nx·N < 2**31.")
-
-
-def fused_step(x, lw, off_u, z, Lq, params, model, *, seed: int,
-               eps: Optional[torch.Tensor] = None):
-    """One fused propagate-and-weight step: ``(x', lw', partials)``.
-
-    ``x`` (nx, N), ``lw`` (N,), ``off_u`` (2,), ``z`` (nz,), ``Lq`` (nx, nx)
-    and ``params`` (the model's scalars) are f32 tensors on one device. On a
-    CUDA tensor kernel B1 draws the normals with Philox keyed on ``seed``
-    (``eps``, when given, replaces them: a test hook); on a CPU tensor the
-    plain version takes ``eps`` or draws it from a generator seeded with
-    ``seed``. ``fused_step.launches`` counts kernel launches.
-    """
-    _check_step_args(x, lw, off_u, z, Lq, params, eps)
-    nx, n = x.shape
-    if x.device.type == "cpu":
-        if eps is None:
-            gen = torch.Generator().manual_seed(int(seed))
-            eps = torch.randn(x.shape, generator=gen, dtype=x.dtype)
-        return fused_step_reference(x, lw, off_u, z, eps, Lq, model)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}.")
-    from particle_filters_tpu_torch.ops import _fused_pf_triton
-
-    block = block_size(nx)
-    x_out = torch.empty_like(x)
-    lw_out = torch.empty_like(lw)
-    part = torch.empty((-(-n // block), partials_width(nx)), dtype=x.dtype, device=x.device)
-    _fused_pf_triton.launch(
-        x, lw, off_u, z, Lq, params, eps, model, int(seed), x_out, lw_out, part, block
-    )
-    fused_step.launches += 1
-    return x_out, lw_out, part
-
-
-fused_step.launches = 0
 
 
 def _combine_partials(partials: torch.Tensor, nx: int):
@@ -241,6 +161,172 @@ def _combine_partials(partials: torch.Tensor, nx: int):
     mean = (scale[:, None] * ex_b).sum(0) / Z
     exx = (scale[:, None] * exx_b).sum(0) / Z
     return log_z, ess, mean, exx
+
+
+def _block_partials(x_new, lw_new):
+    """One partials row ``[m, Σe, Σe², Σe·x, Σe·x⊗x]`` per block of
+    ``block_size(nx)`` particles, e = exp(lw − m)."""
+    nx, n = x_new.shape
+    block = block_size(nx)
+    nb = -(-n // block)
+    pad = nb * block - n
+    lw_b = torch.nn.functional.pad(lw_new, (0, pad), value=float("-inf")).view(nb, block)
+    x_b = torch.nn.functional.pad(x_new, (0, pad)).view(nx, nb, block)
+    m = lw_b.max(dim=1).values
+    m = torch.where(m > float("-inf"), m, torch.zeros_like(m))
+    e = torch.exp(lw_b - m[:, None])  # (nb, block); padding gives 0
+    ex = (x_b * e).sum(-1).T  # (nb, nx)
+    exx = (x_b[:, None] * x_b[None, :] * e).sum(-1)  # (nx, nx, nb)
+    return torch.cat(
+        [
+            m[:, None],
+            e.sum(-1, keepdim=True),
+            (e * e).sum(-1, keepdim=True),
+            ex,
+            exx.permute(2, 0, 1).reshape(nb, nx * nx),
+        ],
+        dim=1,
+    )
+
+
+def fused_step_reference(x, lw, off_u, z, eps, Lq, model):
+    """Plain version of B1 with injected normals ``eps`` (nx, N).
+
+    Returns ``(x', lw', row)``: x' (nx, N), lw' (N,) and the packed row
+    ``[log_z, ess, mean (nx), Σw·x⊗x (nx²)]`` that the kernel writes, from
+    block partials folded by :func:`_combine_partials`.
+    """
+    nx, n = x.shape
+    noise = sum(Lq[:, j : j + 1] * eps[j] for j in range(nx))
+    x_new = model.g(x) + noise
+    lw_in = torch.where(off_u[1] > 0.5, -math.log(n), lw - off_u[0])
+    lw_new = lw_in + model.obs_loglik(x_new, z)
+    log_z, ess, mean, exx = _combine_partials(_block_partials(x_new, lw_new), nx)
+    return x_new, lw_new, torch.cat([log_z[None], ess[None], mean, exx])
+
+
+class StepWork:
+    """What one caller of B1 keeps across launches: the int32 ticket
+    counter (0 between launches: the kernel's last program resets it), one
+    partials row per program, the carry ``(log_z, 0)`` in two slots that
+    launches alternate (a launch may read the previous carry as its
+    ``off_u``) and the int32 trigger ``ess < thresh·N``. One launch at a
+    time per object; each ``FusedSIRFilter`` owns one."""
+
+    def __init__(self, nx: int, device, programs: Optional[int] = None) -> None:
+        device = torch.device(device)
+        if programs is None:
+            programs = 1
+            if device.type == "cuda":
+                sms = torch.cuda.get_device_properties(device).multi_processor_count
+                programs = PROGRAMS_PER_SM * sms
+        self.programs = int(programs)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.trigger = torch.zeros(1, dtype=torch.int32, device=device)
+        self.partials = torch.zeros((self.programs, partials_width(nx)), device=device)
+        self._carry = torch.zeros((2, 2), device=device)
+        self._slot = 0
+
+    @property
+    def carry(self) -> torch.Tensor:
+        """The no-resample carry ``(log_z, 0)`` of the last launch."""
+        return self._carry[self._slot]
+
+    def _next_carry(self) -> torch.Tensor:
+        self._slot ^= 1
+        return self._carry[self._slot]
+
+
+def _check_step_args(x, lw, off_u, z, Lq, params, eps, work=None, **outs):
+    nx, n = x.shape
+    tensors = {"x": x, "lw": lw, "off_u": off_u, "z": z, "Lq": Lq, "params": params}
+    if eps is not None:
+        tensors["eps"] = eps
+    tensors.update({k: v for k, v in outs.items() if v is not None})
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {t.dtype}.")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}.")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous.")
+    if lw.shape != (n,) or off_u.shape != (2,) or Lq.shape != (nx, nx):
+        raise ValueError(
+            f"shapes: lw {tuple(lw.shape)} (want ({n},)), off_u "
+            f"{tuple(off_u.shape)} (want (2,)), Lq {tuple(Lq.shape)} "
+            f"(want ({nx}, {nx}))."
+        )
+    want = {"eps": x.shape, "x_out": x.shape, "lw_out": lw.shape,
+            "row_out": (row_width(nx),)}
+    for name, shape in want.items():
+        t = tensors.get(name)
+        if t is not None and t.shape != shape:
+            raise ValueError(f"{name} must be {tuple(shape)}; got {tuple(t.shape)}.")
+    if work is not None and work.counter.device != x.device:
+        raise ValueError(f"work is on {work.counter.device}, x on {x.device}.")
+    # Offsets are int32: x's (row·N + particle) and Philox's (row·(N + a tile)).
+    if nx > _MAX_NX or nx * (n + 2048) >= 2**31:
+        raise ValueError("need nx <= 10 and nx·(N + 2048) < 2**31.")
+
+
+def fused_step(x, lw, off_u, z, Lq, params, model, *, seed: int,
+               eps: Optional[torch.Tensor] = None, resample_thresh: float = 0.5,
+               work: Optional[StepWork] = None, x_out=None, lw_out=None, row_out=None):
+    """One fused propagate-and-weight step: ``(x', lw', row)`` with the
+    packed row ``[log_z, ess, mean (nx), Σw·x⊗x (nx²)]``.
+
+    ``x`` (nx, N), ``lw`` (N,), ``off_u`` (2,), ``z`` (nz,), ``Lq`` (nx, nx)
+    and ``params`` (the model's scalars) are f32 tensors on one device. On a
+    CUDA tensor kernel B1 draws the normals with Philox keyed on ``seed``
+    (``eps``, when given, replaces them: a test hook); on a CPU tensor the
+    plain version takes ``eps`` or draws it from a generator seeded with
+    ``seed``. The carry ``(log_z, 0)`` and the trigger
+    ``ess < resample_thresh·N`` land in ``work`` (a fresh :class:`StepWork`
+    when none is given); ``x_out``, ``lw_out`` and ``row_out`` receive the
+    outputs when given. ``fused_step.launches`` counts kernel launches.
+    """
+    _check_step_args(x, lw, off_u, z, Lq, params, eps, work,
+                     x_out=x_out, lw_out=lw_out, row_out=row_out)
+    return _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
+                       work, x_out, lw_out, row_out)
+
+
+def _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
+                work, x_out, lw_out, row_out):
+    """:func:`fused_step` on arguments that have been checked."""
+    nx, n = x.shape
+    work = StepWork(nx, x.device) if work is None else work
+    row_out = torch.empty(row_width(nx), device=x.device) if row_out is None else row_out
+    carry = work._next_carry()
+    if x.device.type == "cpu":
+        if eps is None:
+            gen = torch.Generator().manual_seed(int(seed))
+            eps = torch.randn(x.shape, generator=gen, dtype=x.dtype)
+        x_new, lw_new, row = fused_step_reference(x, lw, off_u, z, eps, Lq, model)
+        row_out.copy_(row)
+        carry.copy_(torch.stack([row[0], torch.zeros_like(row[0])]))
+        work.trigger.copy_(row[1] < resample_thresh * n)
+        if x_out is not None:
+            x_new = x_out.copy_(x_new)
+        if lw_out is not None:
+            lw_new = lw_out.copy_(lw_new)
+        return x_new, lw_new, row_out
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}.")
+    from particle_filters_tpu_torch.ops import _fused_pf_triton
+
+    x_out = torch.empty_like(x) if x_out is None else x_out
+    lw_out = torch.empty_like(lw) if lw_out is None else lw_out
+    _fused_pf_triton.launch(
+        x, lw, off_u, z, Lq, params, eps, model, int(seed), float(resample_thresh * n),
+        x_out, lw_out, row_out, carry, work.trigger, work.counter, work.partials,
+        work.programs,
+    )
+    fused_step.launches += 1
+    return x_out, lw_out, row_out
+
+
+fused_step.launches = 0
 
 
 # --- the filter --------------------------------------------------------------
@@ -270,7 +356,7 @@ class FusedSIRFilter:
         self.Np = int(Np)
         self.resample_thresh = float(resample_thresh)
         self._off_resampled = torch.tensor([0.0, 1.0], device=self.device)
-        self._zero = torch.zeros(1, device=self.device)
+        self._work = StepWork(self.nx, self.device)
 
     def _shape(self):
         return (self.Np,) if self.nx == 1 else (self.nx, self.Np)
@@ -302,25 +388,31 @@ class FusedSIRFilter:
         p_new = systematic_resample_values(generator, p, logw=logw)
         return p_new.view(self.Np) if self.nx == 1 else p_new.T.contiguous()
 
-    def _step_core(self, seed, generator, carry, z):
-        """One fused step + conditional resample: ``(carry, (row, trigger))``
-        with ``row = [log_z, ess, mean (nx), Σw·x⊗x (nx²)]``."""
+    def _check(self, state, z):
+        particles, logw, off_u = state
+        _check_step_args(particles.view(self.nx, self.Np), logw, off_u, z, self.Lq,
+                         self.params, None)
+
+    def _step_core(self, seed, generator, carry, z, row_out, x_out=None, lw_out=None):
+        """One fused step + conditional resample on checked arguments:
+        ``(carry, trigger)``. The step's row ``[log_z, ess, mean (nx),
+        Σw·x⊗x (nx²)]`` lands in ``row_out``; x' and lw' in ``x_out`` and
+        ``lw_out`` when given (neither may be an input of the step)."""
         particles, logw, off_u = carry
-        x_new, logw, part = fused_step(
-            particles.view(self.nx, self.Np), logw, off_u, z, self.Lq,
-            self.params, self.model, seed=seed,
+        x_new, logw, _ = _fused_step(
+            particles.view(self.nx, self.Np), logw, off_u, z, self.Lq, self.params,
+            self.model, seed, None, self.resample_thresh, self._work, x_out, lw_out,
+            row_out,
         )
-        log_z, ess, mean, exx = _combine_partials(part, self.nx)
-        row = torch.cat([log_z[None], ess[None], mean, exx])
         particles = x_new.view(self._shape())
-        # The one host sync of the step: the resample branch runs on the host.
-        trigger = bool(ess < self.resample_thresh * self.Np)
+        # The one host read of the step (4 bytes): the resample branch runs on the host.
+        trigger = bool(self._work.trigger.item())
         if trigger:
             particles = self._resample(generator, particles, logw)
             off_u = self._off_resampled
         else:
-            off_u = torch.cat([log_z[None], self._zero])
-        return (particles, logw, off_u), (row, trigger)
+            off_u = self._work.carry
+        return (particles, logw, off_u), trigger
 
     def _hist_dict(self, rows, triggers):
         nx = self.nx
@@ -342,16 +434,29 @@ class FusedSIRFilter:
     def step(self, generator, state, z):
         """One filter step: ``(new_state, info)`` with one history row."""
         (seed,) = self._draw_seeds(generator, 1)
-        carry, (row, trig) = self._step_core(seed, generator, state, self._obs(z).reshape(-1))
-        return carry, self._hist_dict(row, trig)
+        z = self._obs(z).reshape(-1)
+        self._check(state, z)
+        row = torch.empty(row_width(self.nx), device=self.device)
+        (particles, logw, off_u), trig = self._step_core(seed, generator, state, z, row)
+        return (particles, logw, off_u.clone()), self._hist_dict(row, trig)
 
     def run(self, generator, state, zs):
-        """Filter a (T, nz) sequence; the history mirrors ``ParticleFilter.run``."""
+        """Filter a (T, nz) sequence; the history mirrors ``ParticleFilter.run``.
+
+        The outputs are allocated once: two particle and two log-weight
+        buffers that the steps alternate, and the (T, 2 + nx + nx²) rows the
+        kernel writes. ``state`` is read, never written."""
         zs = self._obs(zs)
-        seeds = self._draw_seeds(generator, zs.shape[0])
-        rows, triggers = [], []
+        T = zs.shape[0]
+        self._check(state, zs[0])
+        seeds = self._draw_seeds(generator, T)
+        xs = torch.empty((2, self.nx, self.Np), device=self.device)
+        lws = torch.empty((2, self.Np), device=self.device)
+        rows = torch.empty((T, row_width(self.nx)), device=self.device)
+        triggers = []
         for t, seed in enumerate(seeds):
-            state, (row, trig) = self._step_core(seed, generator, state, zs[t])
-            rows.append(row)
+            state, trig = self._step_core(seed, generator, state, zs[t], rows[t],
+                                          xs[t % 2], lws[t % 2])
             triggers.append(trig)
-        return state, self._hist_dict(torch.stack(rows), triggers)
+        particles, logw, off_u = state
+        return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers)

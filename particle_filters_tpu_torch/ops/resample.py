@@ -7,15 +7,18 @@ it compared a window of starts against 128 output positions and summed
 telescoping particle differences, in three span tiers with an XLA fallback,
 exact only below N = 2²⁴ and with O(log N·eps) rounding.
 
-The H100 gathers natively. ``csrc/systematic_resample.cu`` gives every output
-row a thread that binary-searches the sorted starts for its ancestor and
-copies the ancestor's values: exact at any degeneracy, no tiers, no
-fallback, and equal to ``p[idx]`` bit for bit.
+The H100 gathers natively. ``csrc/systematic_resample.cu`` is a merge-path
+load-balanced search (ModernGPU's ``load_balance_search``): the merge of the
+N starts with the N output positions is cut into equal blocks along
+merge-path diagonals, each block stages its window of starts in shared
+memory and merges it serially, then copies the ancestors' values with
+16-byte stores. Exact at any degeneracy, no tiers, no fallback, and equal to
+``p[idx]`` bit for bit.
 
 What bounds it on the card: bytes. At N = 2²⁰, d = 1 it must read the
-starts and the particles and write the output, 12 MiB in all; the log2 N
-probes of each search hit the L2-resident upper levels of the search tree,
-and neighbouring threads probe neighbouring slots, so their loads coalesce.
+starts and the particles and write the output, 12 MiB in all; the design
+spends three rounds of loads on each block's split, where a binary search
+per output spent twenty dependent ones.
 
 The starts come from torch ops (``resampling.hard._systematic_starts``),
 as they came from XLA in the JAX package.
@@ -59,8 +62,8 @@ def _check(particles: torch.Tensor, starts: torch.Tensor) -> None:
         raise ValueError("particles and starts must be on one device.")
     if not (particles.is_contiguous() and starts.is_contiguous()):
         raise ValueError("particles and starts must be contiguous.")
-    if particles.shape[0] >= 2**31:
-        raise ValueError("N must be below 2**31.")
+    if particles.shape[0] > 2**30:
+        raise ValueError("N must be at most 2**30.")
 
 
 def _library() -> ctypes.CDLL:
@@ -84,6 +87,8 @@ def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor) -> torch.T
     if particles.device.type != "cuda":
         raise ValueError(f"unsupported device {particles.device}.")
     lib = _library()
+    if starts.data_ptr() % 16:  # the kernel stages the starts with 16-byte copies
+        starts = starts.clone()
     out = torch.empty_like(particles)
     n, d = particles.shape
     with torch.cuda.device(particles.device):

@@ -2,13 +2,15 @@
 NVIDIA GPU.
 
 The checks of ``chip_smoke.py`` (B2 bit-equal to its plain version at the
-weight regimes of the TPU kernel's tiers; B1 with injected normals at
-rtol 1e-5 / atol 1e-6, its combined moments at rtol 1e-4, and its Philox
-normals' mean and variance within 5 standard errors; X3 bit-equal; X1's
-variants and X2 within 1e-5, X2 also against B2) at a small N, plus the
-launch counters; N = 3000 leaves a ragged last block, and the probes, which
-take whole super-groups, run at 3·2^14 beside a power of two. Run on a GPU
-host with
+weight regimes of the TPU kernel's tiers and at point masses; B1 with
+injected normals at rtol 1e-5 / atol 1e-6, its row at rtol 1e-4, its
+counter back to 0 and its trigger and carry matching the row after a launch
+and after CUDA-graph replays, and its Philox normals' mean and variance
+within 5 standard errors; X3 bit-equal; X1's variants and X2 within 1e-5,
+X2 also against B2) at a small N, plus the launch counters; N = 3000 leaves
+a ragged last block, and the probes, which take whole super-groups, run at
+3·2^14 beside a power of two. The fused filter run twice from one seed
+gives the same history bit for bit. Run on a GPU host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -39,7 +41,7 @@ def test_b2_kernel_equals_plain(cuda_device, n):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     assert chip_smoke.check_b2(gen, n, cuda_device) == 0.0
     torch.cuda.synchronize()
-    assert resample_by_starts.launches == before + 8  # 4 regimes x d in {1, 3}
+    assert resample_by_starts.launches == before + 14  # 7 regimes x d in {1, 3}
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -53,7 +55,34 @@ def test_b1_kernel_matches_plain(cuda_device, n):
     err = chip_smoke.check_b1(gen, n, cuda_device)
     torch.cuda.synchronize()
     assert err < 1e-3
-    assert fused_step.launches == before + 6  # 2 models x (2 injected + 1 drawn)
+    # 2 models x (2 injected x (1 launch + graph warm-up + capture) + 1 drawn)
+    assert fused_step.launches == before + 14
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_fused_run_is_deterministic(cuda_device, n):
+    """The last program finishes the moments in a fixed order and resets
+    the counter: two runs from one seed give the same history bit for bit."""
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.fused_pf import FusedSIRFilter, SVModel
+    from particle_filters_tpu_torch.simulators import simulate_sv_1d
+
+    sv = simulate_sv_1d(60, chip_smoke.ALPHA, chip_smoke.SIGMA, chip_smoke.BETA, seed=3,
+                        device=cuda_device)
+    f = FusedSIRFilter(SVModel(chip_smoke.ALPHA, chip_smoke.BETA), [[chip_smoke.SIGMA**2]],
+                       Np=n, device=cuda_device)
+    hists = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda_device).manual_seed(11)
+        state0 = f.initialize(gen, [0.0], [[0.4]])
+        _, hist = f.run(gen, state0, sv.Y[:, None])
+        hists.append(hist)
+    torch.cuda.synchronize()
+    assert int(f._work.counter.item()) == 0
+    assert bool(hists[0]["resampled"].any())
+    for k in hists[0]:
+        assert torch.equal(hists[0][k], hists[1][k]), k
 
 
 PROBE_SIZES = [1 << 16, 3 << 14]

@@ -1,6 +1,6 @@
 """Port parity: the fused SIR filter, kernel B1's plain version and the
 partials combine, against the JAX package (its Pallas kernel in interpret
-mode for whole-filter runs)."""
+mode for single steps and whole-filter runs)."""
 
 import math
 
@@ -18,6 +18,7 @@ from particle_filters_tpu_torch.interop import params_from_jax, state_from_jax
 from particle_filters_tpu_torch.ops.fused_pf import (
     FusedSIRFilter,
     LinearObsFirstModel,
+    StepWork,
     SVModel,
     _combine_partials,
     fused_step,
@@ -78,7 +79,7 @@ def test_fused_step_reference_matches_jax_weights(nx, uniform):
     z = np.array([0.6], np.float32)
     off_u = np.array([0.25, 1.0 if uniform else 0.0], np.float32)
 
-    xt, lwt, part = fused_step_reference(
+    xt, lwt, row = fused_step_reference(
         *map(torch.from_numpy, (x, lw, off_u, z, eps)), Lq, model
     )
     # The same step spelled with numpy / the JAX package.
@@ -94,7 +95,7 @@ def test_fused_step_reference_matches_jax_weights(nx, uniform):
     np.testing.assert_allclose(xt.numpy(), x_ref, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(lwt.numpy(), lw_ref, rtol=1e-5, atol=1e-6)
 
-    log_z, ess, mean, exx = _combine_partials(part, nx)
+    log_z, ess, mean, exx = row[0], row[1], row[2 : 2 + nx], row[2 + nx :]
     cov = exx.reshape(nx, nx) - torch.outer(mean, mean)
     _, jz = jw.log_normalize(jnp.asarray(lw_ref))
     jmean, jcov = jw.weighted_mean_cov(jnp.asarray(x_ref.T), jnp.asarray(lw_ref))
@@ -103,6 +104,57 @@ def test_fused_step_reference_matches_jax_weights(nx, uniform):
                                rtol=1e-5)
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(cov.numpy(), np.asarray(jcov), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("branch", ["finalize", "combine"])
+@pytest.mark.parametrize("nx", [1, 2])
+def test_fused_step_row_matches_jax_kernel(nx, branch):
+    """One step through the JAX kernel (interpret mode) in its finalize
+    branch (one block) and its combine branch (four blocks), against the
+    port's plain B1 fed the JAX kernel's own normals, recovered as
+    ε = Lq⁻¹(x' − g(x)); the trigger and carry against ``_step_core``'s."""
+    n = 1024
+    rng = np.random.default_rng(10 + nx)
+    block = n if branch == "finalize" else n // 4
+    if nx == 1:
+        jf, model, Q = _jax_sv_fused(n, block=block), SVModel(ALPHA, BETA), [[SIGMA**2]]
+    else:
+        jf, model, Q = _jax_nx2_fused(n, block=block), LinearObsFirstModel(A2, R2), Q2
+    _, Lq = params_from_jax(Q, device="cpu")
+    x = (0.5 + rng.standard_normal((nx, n))).astype(np.float32)
+    lw = (rng.standard_normal(n) - math.log(n)).astype(np.float32)
+    off_u = np.array([0.25, 0.0], np.float32)
+    z = np.array([0.6], np.float32)
+
+    pt, lwj = jnp.asarray(x.reshape(jf.rows, jf.cols)), jnp.asarray(lw.reshape(jf.wrows, jf.wcols))
+    seed_arr, z_pad = jf._seed_pair(7), jf._pad_obs(jnp.asarray(z))
+    with pltpu.force_tpu_interpret_mode():
+        xj, lwj2, rowj = jf._fused_step(seed_arr, jnp.asarray(off_u), pt, lwj, z_pad)
+    xj = np.asarray(xj).reshape(nx, n)
+    gx = ALPHA * x if nx == 1 else A2 @ x
+    eps = np.linalg.solve(Lq.numpy().astype(np.float64), (xj - gx).astype(np.float64))
+
+    x_t, lw_t = torch.from_numpy(x), torch.from_numpy(lw)
+    work = StepWork(nx, "cpu")
+    ess_frac = float(rowj[1]) / n
+    for thresh, resamples in ((0.5 * ess_frac, False), (1.01, True)):
+        xp, lwp, row = fused_step(
+            x_t, lw_t, torch.from_numpy(off_u), torch.from_numpy(z), Lq,
+            torch.tensor(model.params), model, seed=0,
+            eps=torch.from_numpy(eps.astype(np.float32)), resample_thresh=thresh, work=work,
+        )
+        np.testing.assert_allclose(xp.numpy(), xj, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(lwp.numpy(), np.asarray(lwj2).reshape(n), rtol=1e-5, atol=1e-6)
+        width = 2 + nx + nx * nx
+        np.testing.assert_allclose(row.numpy(), np.asarray(rowj)[:width], rtol=1e-4, atol=1e-6)
+
+        jf.resample_thresh = thresh
+        with pltpu.force_tpu_interpret_mode():
+            (_, _, off_j), (_, trig_j, _) = jf._step_core(
+                seed_arr, jax.random.PRNGKey(3), (pt, lwj, jnp.asarray(off_u)), z_pad)
+        assert bool(work.trigger.item()) == bool(trig_j) == resamples
+        off_next = torch.tensor([0.0, 1.0]) if bool(work.trigger.item()) else work.carry
+        np.testing.assert_allclose(off_next.numpy(), np.asarray(off_j), rtol=1e-4, atol=1e-6)
 
 
 def test_fused_step_wrapper_cpu_path_and_checks():
@@ -120,6 +172,14 @@ def test_fused_step_wrapper_cpu_path_and_checks():
         fused_step(x.double(), lw, off_u, z, f.Lq, f.params, f.model, seed=5)
     with pytest.raises(ValueError):
         fused_step(x, lw[:-1], off_u, z, f.Lq, f.params, f.model, seed=5)
+    with pytest.raises(ValueError, match="row_out"):
+        fused_step(x, lw, off_u, z, f.Lq, f.params, f.model, seed=5, row_out=torch.empty(2))
+    # The plain version leaves the carry and the trigger in the caller's work.
+    work = StepWork(1, "cpu")
+    _, _, row = fused_step(x, lw, off_u, z, f.Lq, f.params, f.model, seed=5,
+                           resample_thresh=2.0, work=work)
+    assert torch.equal(work.carry, torch.stack([row[0], torch.tensor(0.0)]))
+    assert int(work.trigger.item()) == 1
     with pytest.raises(ValueError, match="nx <= 10"):
         FusedSIRFilter(LinearObsFirstModel(np.eye(11), 1.0), np.eye(11), Np=64, device="cpu")
     with pytest.raises(ValueError, match="model.nx"):
@@ -138,6 +198,23 @@ def test_forced_resample_lazy_carry_is_uniform():
         assert bool(hist["resampled"].all())
         assert float(st[2][1]) == 1.0
         np.testing.assert_allclose(f.effective_logw(st).numpy(), -np.log(1024.0), atol=1e-6)
+
+
+@pytest.mark.parametrize("nx", [1, 2])
+def test_run_reads_its_initial_state_and_repeats(nx):
+    """``run`` writes its outputs into buffers of its own: the caller's state
+    is unchanged, and a second run from it gives the same history."""
+    model, Q = (SVModel(ALPHA), [[SIGMA**2]]) if nx == 1 else (LinearObsFirstModel(A2, R2), Q2)
+    f = FusedSIRFilter(model, Q, Np=1000, device="cpu")
+    state0 = f.initialize(torch.Generator().manual_seed(2), np.zeros(nx), np.eye(nx))
+    copy0 = tuple(t.clone() for t in state0)
+    zs = np.linspace(-1.0, 1.0, 12, dtype=np.float32)[:, None]
+    hists = [f.run(torch.Generator().manual_seed(3), state0, zs)[1] for _ in range(2)]
+    for a, b in zip(state0, copy0):
+        assert torch.equal(a, b)
+    assert bool(hists[0]["resampled"].any())
+    for k in hists[0]:
+        assert torch.equal(hists[0][k], hists[1][k]), k
 
 
 @pytest.mark.parametrize("nx", [1, 2])
