@@ -7,23 +7,36 @@ Builds every hand-written kernel from the sources in this checkout (B2 and
 the probes X1-X3 with nvcc into build/torch_kernels/, one nvcc per source,
 all started together; B1 by Triton) and holds each against its plain
 PyTorch version on the card at N = 2^20 (B2 also at N = 3000, a ragged last
-block; B1's row and its counter also after CUDA-graph replays; X1 and X2
-within 1e-5: they telescope f32 differences in another order; X2 also
-against B2). Then:
+block; B1 and B2 also at the exact path's N = 2^25, B2 there on the exact
+integer starts; B1's row and its counter also after CUDA-graph replays; X1
+and X2 within 1e-5: they telescope f32 differences in another order; X2
+also against B2). Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
   when ESS < N/2) through ``FusedSIRFilter`` and through the general
   ``ParticleFilter``, checked, with B1 and B2 counted, and a run that
   never resamples, which must launch B1 and no other kernel per step;
+- the exact path: the run ends at N = 2^25 on the card bit-equal to the
+  same call on the CPU (lognormal sigma = 2 and a point mass), and
+  ``FusedSIRFilter`` on the SV model at N = 2^25, T = 50 (B1, and B2 on
+  exact starts), with B1 and B2 counted;
+- the SNLG path (``benchmarks.snlg``): KF, KF at sigma_z = 1, UKF, EDH-200,
+  LEDH-200 and EDH-10000 on the sensor network, d = 64, T = 50, 100 trials
+  batched, each held to the JAX package's MSE (KF and UKF within 1e-3
+  relative, the flows within 5 %), B2 counted on the flows' resample steps
+  (once a step for all triggered trials); B2 also held bit-equal to its
+  plain version at the flows' shapes, (2e4, 64) and (1e6, 64) with
+  trial-offset starts and a point-mass trial;
 - the profiling path: the small-N step decomposition
   (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
   variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
   (``benchmarks.exp_resample_dma``), with X1-X3 counted;
 - each kernel timed against its plain version, its bound and, where one
   PyTorch call computes the same function, that call; B1 also with
-  injected normals and over its programs per SM, B2 also at a point mass,
-  X3 against ``torch.add`` in alternating pairs.
+  injected normals and over its programs per SM, B2 also at a point mass
+  and at the flows' d = 64 shapes, X3 against ``torch.add`` in alternating
+  pairs; the exact run ends at 2^25 beside the f32 ones at 2^24.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -46,6 +59,7 @@ from particle_filters_tpu_torch.benchmarks import (
     exp_kernel_var,
     exp_resample_dma,
     profile_small_n,
+    snlg,
 )
 from particle_filters_tpu_torch.models import ParticleFilter
 from particle_filters_tpu_torch.ops import launch_probe as x3
@@ -63,7 +77,11 @@ from particle_filters_tpu_torch.ops.fused_pf import (
     row_width,
 )
 from particle_filters_tpu_torch.ops.resample_blocked import fine_chunks
-from particle_filters_tpu_torch.resampling.hard import _systematic_starts
+from particle_filters_tpu_torch.resampling.hard import (
+    _child_run_ends_u,
+    _systematic_starts,
+    batched_starts,
+)
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
 
 N = 1 << 20
@@ -74,6 +92,11 @@ FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two orders
 SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
 B2_RAGGED_N = 3000  # B2's checks again where the last block is ragged
+EXACT_N, EXACT_T = 1 << 25, 50  # the exact path: past the f32 run ends' 2^24
+B2_TRIAL_SHAPES = ((100, 200), (100, 10000))  # the flows' resample: trials x N at d = 64
+SNLG_D = 64
+SNLG_MSE_RTOL = {"kf": 1e-3, "kf_sz1": 1e-3, "ukf": 1e-3,
+                 "edh200": 0.05, "ledh200": 0.05, "edh10000": 0.05}
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -136,7 +159,7 @@ def check_b2(gen, n, device) -> float:
         descents = int((raw[1:] < raw[:-1]).sum())
         starts = _systematic_starts(gen, w, n)
         _check(bool((starts[1:] >= starts[:-1]).all()), f"starts nondecreasing ({label})")
-        print(f"B2 {label:22s}: raw cumsum descents {descents}, starts nondecreasing")
+        print(f"B2 {label:22s}: raw cumsum descents {descents}, starts nondecreasing (N={n})")
         for d in (1, 3):
             p = torch.randn((n, d), generator=gen, device=device)
             out = b2.resample_by_starts(p, starts)
@@ -145,6 +168,35 @@ def check_b2(gen, n, device) -> float:
             _check(torch.equal(out, ref), f"B2 == plain bit for bit ({label}, d={d})")
             print(f"B2 {label:22s} d={d}: equal to plain (N={n})")
     return max_err
+
+
+def _trial_weights(gen, trials, n, device):
+    """(trials, n) weights: lognormal sigma = 2 rows, a point mass in row 1."""
+    w = torch.softmax(2.0 * torch.randn((trials, n), generator=gen, device=device), dim=1)
+    w[1] = 0.0
+    w[1, n // 3] = 1.0
+    return w
+
+
+def check_b2_trials(gen, trials, n, d, device) -> float:
+    """B2 at the flows' resample: all trials' starts offset by b*n in one
+    sorted array, values (trials*n, d); equal to plain bit for bit, and no
+    trial's values come from another trial."""
+    w = _trial_weights(gen, trials, n, device)
+    starts = batched_starts(w, torch.rand(trials, generator=gen, device=device))
+    _check(bool((starts[1:] >= starts[:-1]).all()), "trial starts nondecreasing")
+    firsts = starts.view(trials, n)[:, 0]
+    _check(torch.equal(firsts, torch.arange(trials, device=device, dtype=torch.int32) * n),
+           "each trial's first start is its offset")
+    p = torch.randn((trials * n, d), generator=gen, device=device)
+    out = b2.resample_by_starts(p, starts)
+    ref = b2.resample_by_starts_reference(p, starts)
+    _check(torch.equal(out, ref), f"B2 == plain bit for bit ({trials} x {n}, d={d})")
+    _check(bool((out.view(trials, n, d)[1] == p[n + n // 3]).all()),
+           "the point-mass trial holds its own particle only")
+    print(f"B2 trial-offset starts {trials} x {n} = {trials * n} rows, d={d}: equal to plain, "
+          f"point-mass trial intact")
+    return (out - ref).abs().max().item()
 
 
 # --- B1 -----------------------------------------------------------------------
@@ -396,6 +448,87 @@ def check_step_launches(n, device):
           f"{counts[40]} a run over T=20 and T=40 (none per step)")
 
 
+# --- the exact path -----------------------------------------------------------
+def check_exact(gen, device) -> None:
+    """The run ends past 2^24 (the exact integer path) on the card equal the
+    same call on the CPU bit for bit, at N = 2^25."""
+    n = EXACT_N
+    cases = (("lognormal sigma=2", torch.softmax(2.0 * torch.randn(n, generator=gen,
+                                                                    device=device), 0)),
+             ("point mass at N/3", _point_masses(n, device, n // 3)))
+    for label, w in cases:
+        u = torch.rand((), generator=gen, device=device)
+        t_card = _child_run_ends_u(w, n, u)
+        t_cpu = _child_run_ends_u(w.cpu(), n, u.cpu())
+        _check(torch.equal(t_card.cpu(), t_cpu), f"exact run ends card == CPU ({label}, N={n})")
+        _check(int(t_card[-1]) == n and bool((t_card[1:] >= t_card[:-1]).all()),
+               f"exact run ends end at N and never descend ({label})")
+        print(f"exact run ends N={n} {label}: card equal to CPU bit for bit")
+
+
+def time_run_ends(gen, device, card) -> None:
+    """The exact run ends at 2^25 beside the f32 ones at 2^24 (and the exact
+    ones forced at 2^24), eager, CUDA events."""
+    for label, n, exact in (("exact", EXACT_N, None), ("f32", 1 << 24, None),
+                            ("exact forced", 1 << 24, True)):
+        w = torch.softmax(2.0 * torch.randn(n, generator=gen, device=device), 0)
+        u = torch.rand((), generator=gen, device=device)
+        ms = _time_ms(lambda: _child_run_ends_u(w, n, u, exact=exact), reps=3)
+        print(f"run ends, {label} path, N={n}: {ms:.4f} ms  [{card}]")
+
+
+def run_exact_path(device, card):
+    """FusedSIRFilter on the SV model at N = 2^25, T = 50: B1 every step, B2
+    on exact starts at every resample step; B1 and B2 set to 0 just before
+    and read just after."""
+    sv = simulate_sv_1d(EXACT_T, ALPHA, SIGMA, BETA, seed=43, device=device)
+    f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=EXACT_N, resample_thresh=0.5,
+                       device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    state0 = f.initialize(gen, [0.0], [[SIGMA**2 / (1 - ALPHA**2)]])
+    torch.cuda.synchronize()
+    fused_step.launches = 0
+    b2.resample_by_starts.launches = 0
+    t0 = time.perf_counter()
+    _, hist = f.run(gen, state0, sv.Y[:, None])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches}
+    for k, v in hist.items():
+        _check(bool(torch.isfinite(v.float()).all()), f"exact path: finite history[{k}]")
+    rmse = torch.sqrt(torch.mean((hist["mean"][:, 0] - sv.X) ** 2)).item()
+    n_res = int(hist["resampled"].sum())
+    _check(rmse < 1.5, f"exact path: sv_rmse {rmse} < 1.5")
+    _check(n_res >= 1, "exact path: at least one resample step")
+    _check(counts["B1"] == EXACT_T, f"exact path: B1 launched {counts['B1']}, want {EXACT_T}")
+    _check(counts["B2"] == n_res, f"exact path: B2 launched {counts['B2']}, want {n_res}")
+    print(f"exact path: fused SV run N={EXACT_N} T={EXACT_T}: sv_rmse {rmse:.4f}, "
+          f"{n_res} resample steps, launches {counts}, {wall_ms / EXACT_T:.4f} ms/step "
+          f"(eager wall)  [{card}]")
+    return counts
+
+
+# --- the SNLG path -------------------------------------------------------------
+def run_snlg_path(device, card):
+    """The SNLG column at full width, checked against the JAX package's
+    MSEs. B2's count is set to 0 just before each flow's timed run and read
+    just after (``snlg.run_flow``); the path's count is their sum."""
+    res = snlg.run_column(device, profile=("edh10000", "ledh200"))
+    launches = sum(res[tag]["b2_launches"] for tag, _, _ in snlg.FLOWS)
+    snlg.print_column(res, card)
+    for tag, r in res.items():
+        want, rtol = snlg.JAX_MSE[tag], SNLG_MSE_RTOL[tag]
+        _check(abs(r["mse"] - want) <= rtol * want,
+               f"SNLG {tag}: MSE {r['mse']} within {rtol} of the JAX package's {want}")
+    for tag, _, _ in snlg.FLOWS:
+        r = res[tag]
+        _check(r["b2_launches"] == r["resample_steps"] > 0,
+               f"SNLG {tag}: B2 launched {r['b2_launches']} times, once a step with a "
+               f"resample ({r['resample_steps']})")
+    print(f"SNLG path: B2 launched {launches} times in the flows' timed runs")
+    return {"B2": launches}
+
+
 # --- the profiling path ------------------------------------------------------
 def run_profiling_path(device, card):
     """The small-N decomposition, X1's variants and X2 against B2, with the
@@ -534,6 +667,34 @@ def time_b2_balance(gen, n, device, card) -> None:
               f"{sum(lib) / len(lib):.6f} ms  [{card}]")
     ratio = ms["point mass at N/3"] / ms["sigma=2"]
     print(f"B2 point mass / sigma=2: {ratio:.3f}  [{card}]")
+
+
+def time_b2_trials(gen, device, card):
+    """B2 at the flows' shapes, d = 64 with trial-offset starts: device time,
+    plain, ``repeat_interleave`` and the byte bound, in turns."""
+    out = {}
+    for trials, n in B2_TRIAL_SHAPES:
+        rows = trials * n
+        sets = []
+        for _ in range(4):
+            starts = batched_starts(_trial_weights(gen, trials, n, device),
+                                    torch.rand(trials, generator=gen, device=device))
+            p = torch.randn((rows, SNLG_D), generator=gen, device=device)
+            counts = torch.diff(starts, append=starts.new_full((1,), rows)).long()
+            sets.append((p, starts, counts))
+        kern = _rotating(lambda p, s, c: b2.resample_by_starts(p, s), sets)
+        plain = _rotating(lambda p, s, c: b2.resample_by_starts_reference(p, s), sets)
+        lib = _rotating(lambda p, s, c: torch.repeat_interleave(p, c, dim=0, output_size=rows),
+                        sets)
+        t = [_graph_ms(f) for f in (kern, plain, lib, lib, plain, kern)]
+        ms, plain_ms, lib_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        p, starts, _ = sets[0]
+        bound = _bound(_nbytes(p, starts, p), 2 * (2 * rows))
+        out[rows] = (ms, plain_ms, lib_ms, bound)
+        print(f"B2 at the flows' shape {trials} x {n} = {rows} rows, d={SNLG_D}: device "
+              f"{ms:.6f} ms, plain {plain_ms:.6f} ms, repeat_interleave {lib_ms:.6f} ms; bound "
+              f"{bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms:.3f} of it  [{card}]")
+    return out
 
 
 def _x1_timed(gen, n, device):
@@ -676,17 +837,24 @@ def main() -> None:
     gen = torch.Generator(device=device).manual_seed(2024)
 
     _build_all(gen)
-    errs = {"B2": max(check_b2(gen, N, device), check_b2(gen, B2_RAGGED_N, device)),
-            "B1": check_b1(gen, N, device), "X3": check_x3(device),
+    errs = {"B2": max([check_b2(gen, n, device) for n in (N, B2_RAGGED_N, EXACT_N)]
+                      + [check_b2_trials(gen, t, n, SNLG_D, device) for t, n in B2_TRIAL_SHAPES]),
+            "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
             "X1": check_x1(N, device), "X2": check_x2(gen, N, device)}
+    check_exact(gen, device)
     torch.cuda.synchronize()
 
     counts, fused_run = run_main_path(N, device)
     check_step_launches(N, device)
+    exact_counts = run_exact_path(device, card)
+    snlg_counts = run_snlg_path(device, card)
+    print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}")
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)
     time_b1_variants(gen, N, device, card)
     time_b2_balance(gen, N, device, card)
+    time_b2_trials(gen, device, card)
+    time_run_ends(gen, device, card)
     x3_ms, add_ms = time_x3_pairs(gen, card)
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
     time_fused_run(N, card, fused_run)

@@ -7,8 +7,11 @@
 - ``exp_resample_dma``: the span-staged resample (probe X2,
   ``ops/span_resample.py``) against kernel B2;
 - ``b2_phases``: kernel B2's device time phase by phase, from copies of its
-  source cut after each phase.
+  source cut after each phase;
+- ``snlg``: the SNLG d = 64 column (KF, UKF, EDH-200, LEDH-200, EDH-10000
+  over 100 trials at once), the twin of ``bench_snlg`` in
+  ``benchmarks/run_benchmarks.py``.
 
 The first three time by the slope protocol of ``_slope``, ``b2_phases`` by
-CUDA-graph replay. Importing runs nothing.
+CUDA-graph replay, ``snlg`` by wall clock to a sync. Importing runs nothing.
 """

@@ -6,26 +6,63 @@ arrays, into this package's, so both packages can start from one state.
 - A fused carry ``(particles_t, logw, off_u)`` becomes this package's:
   for nx = 1 the JAX (8, N/8) layout is read row-major into (N,); for
   nx > 1 particles stay (nx, N); log-weights become (N,).
+- An ``EKFState``, ``UKFState``, ``TrackerState`` or ``FlowPFState`` becomes
+  this package's class of that name, field by field (:func:`state_from_jax`
+  picks it by the class's name).
 - ``Q`` becomes the f32 ``(Q, Lq)`` pair both filters build, with
   ``Lq = cholesky(Q + 1e-10·I)`` taken in numpy as the JAX fused filter does.
+- ``LGSSMParams`` and an ``SNLGDataset`` become this package's.
+
+:func:`to_numpy` goes back: a state's fields as numpy arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.core.structs import PFState
+from particle_filters_tpu_torch.core.structs import PFState, state_fields
+from particle_filters_tpu_torch.models.edh_particle_filter import FlowPFState
+from particle_filters_tpu_torch.models.extended_kalman_filter import EKFState
+from particle_filters_tpu_torch.models.trackers import TrackerState
+from particle_filters_tpu_torch.models.unscented_kalman_filter import UKFState
 from particle_filters_tpu_torch.ops.fused_pf import noise_factor
+from particle_filters_tpu_torch.simulators.lgssm import LGSSMParams
+from particle_filters_tpu_torch.simulators.sensor_network_lg import SNLGConfig, SNLGDataset
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
+def _leaf(a, device) -> torch.Tensor:
+    """f32 for floating leaves, int32 for integer ones, bool kept."""
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return _t(a, device)
+    return _t(a, device, np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32)
+
+
+_STATES = {cls.__name__: cls for cls in (EKFState, UKFState, TrackerState, FlowPFState)}
+
+
+def _fields_from(cls, state, device):
+    """``cls`` built from ``state``'s fields of the same names."""
+    fields = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(state, f.name)
+        fields[f.name] = ({k: _leaf(x, device) for k, x in v.items()}
+                          if isinstance(v, dict) else _leaf(v, device))
+    return cls(**fields)
+
+
 def state_from_jax(state, *, device="cuda"):
-    """A JAX ``PFState`` or fused 3-tuple carry (numpy-convertible leaves)
-    as this package's state on ``device`` (the card unless ``"cpu"``)."""
+    """A JAX state (numpy-convertible leaves) as this package's state on
+    ``device`` (the card unless ``"cpu"``): a ``PFState`` or fused 3-tuple
+    carry, or an ``EKFState``, ``UKFState``, ``TrackerState`` or
+    ``FlowPFState``."""
     if isinstance(state, tuple):
         particles_t, logw, off_u = (np.asarray(a, np.float32) for a in state)
         # Log-weights ride (8, N/8) only for nx = 1, a (1, N) row otherwise.
@@ -35,16 +72,35 @@ def state_from_jax(state, *, device="cuda"):
             _t(logw.reshape(-1), device),
             _t(off_u, device),
         )
-    return PFState(
-        particles=_t(state.particles, device, np.float32),
-        log_weights=_t(state.log_weights, device, np.float32),
-        mean=_t(state.mean, device, np.float32),
-        cov=_t(state.cov, device, np.float32),
-        t=_t(state.t, device, np.int32),
-    )
+    return _fields_from(_STATES.get(type(state).__name__, PFState), state, device)
+
+
+def to_numpy(state) -> dict:
+    """A state's fields as numpy arrays (a dict field as a dict)."""
+    names = [f.name for f in dataclasses.fields(state)]
+    out = {}
+    for name, v in zip(names, state_fields(state)):
+        out[name] = ({k: x.detach().cpu().numpy() for k, x in v.items()}
+                     if isinstance(v, dict) else v.detach().cpu().numpy())
+    return out
 
 
 def params_from_jax(Q, *, device="cuda"):
     """``(Q, Lq)`` as f32 tensors, with the JAX fused filter's
     ``Lq = cholesky(Q + 1e-10·I)``."""
     return _t(Q, device, np.float32), _t(noise_factor(Q), device)
+
+
+def lgssm_params_from_jax(params, *, device="cuda") -> LGSSMParams:
+    """A JAX ``LGSSMParams`` as this package's, f32 on ``device``."""
+    return _fields_from(LGSSMParams, params, device)
+
+
+def snlg_dataset_from_jax(ds, *, device="cuda") -> SNLGDataset:
+    """A JAX ``SNLGDataset`` (with its config) as this package's."""
+    cfg = None if ds.config is None else SNLGConfig(**dataclasses.asdict(ds.config))
+    return SNLGDataset(
+        X=_t(ds.X, device, np.float32), Z=_t(ds.Z, device, np.float32),
+        coords=_t(ds.coords, device, np.float32), Sigma=_t(ds.Sigma, device, np.float32),
+        config=cfg,
+    )

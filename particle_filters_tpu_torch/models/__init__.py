@@ -1,4 +1,51 @@
 from particle_filters_tpu_torch.core.structs import PFState
+from particle_filters_tpu_torch.models.edh_particle_filter import (
+    EDHConfig,
+    EDHFlowPF,
+    FlowPFState,
+)
+from particle_filters_tpu_torch.models.extended_kalman_filter import (
+    EKFState,
+    ExtendedKalmanFilter,
+    make_ekf_state,
+    numerical_jacobian_g,
+    numerical_jacobian_h,
+)
+from particle_filters_tpu_torch.models.kalman_filter import KFResults, kalman_filter_general
+from particle_filters_tpu_torch.models.ledh_particle_filter import LEDHConfig, LEDHFlowPF
 from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
+from particle_filters_tpu_torch.models.trackers import (
+    EKFTracker,
+    GaussianTracker,
+    TrackerState,
+    UKFTracker,
+)
+from particle_filters_tpu_torch.models.unscented_kalman_filter import (
+    UKFState,
+    UnscentedKalmanFilter,
+    make_ukf_state,
+)
 
-__all__ = ["PFState", "ParticleFilter"]
+__all__ = [
+    "EDHConfig",
+    "EDHFlowPF",
+    "EKFState",
+    "EKFTracker",
+    "ExtendedKalmanFilter",
+    "FlowPFState",
+    "GaussianTracker",
+    "KFResults",
+    "LEDHConfig",
+    "LEDHFlowPF",
+    "PFState",
+    "ParticleFilter",
+    "TrackerState",
+    "UKFState",
+    "UKFTracker",
+    "UnscentedKalmanFilter",
+    "kalman_filter_general",
+    "make_ekf_state",
+    "make_ukf_state",
+    "numerical_jacobian_g",
+    "numerical_jacobian_h",
+]

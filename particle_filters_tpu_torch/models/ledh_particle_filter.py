@@ -1,0 +1,147 @@
+"""EKF/UKF-assisted LEDH (local EDH) particle-flow particle filter (PyTorch
+port of ``particle_filters_tpu/models/ledh_particle_filter.py``).
+
+Per-particle linearization Hⁱ = Jh(ηⁱ), per-particle flow matrices Aⁱ, bⁱ,
+Euler migration of ηⁱ and of the auxiliary path η̄ⁱ, the flow log-det θⁱ,
+and the invertible weights w ∝ w·θ·p(z|x)p(x|x₋)/p(η₀|x₋). The flow is the
+JAX package's Woodbury form (:meth:`LEDHFlowPF._per_particle_flow`): its
+two factorizations are one single-shot Cholesky of a stacked (2, nx, nx)
+pair per particle — under the particle ``torch.func.vmap`` one batched
+``cholesky_ex`` over (N, 2, nx, nx) — and the log-dets come from their
+diagonals. The steps, runs and batched trials are those of
+:class:`~particle_filters_tpu_torch.models.edh_particle_filter._FlowPF`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from particle_filters_tpu_torch.core.linalg import (
+    chol_nojitter,
+    chol_solve,
+    chol_with_jitter,
+    cond_spd,
+    cond_spd_power,
+    symmetrize,
+    tri_solve_lower,
+)
+from particle_filters_tpu_torch.models.edh_particle_filter import _FlowPF, _lambda_grid
+
+
+@dataclasses.dataclass(frozen=True)
+class LEDHConfig:
+    """The JAX package's ``LEDHConfig``."""
+
+    n_particles: int = 512
+    n_lambda_steps: int = 8
+    resample_ess_ratio: float = 0.0
+    cond_mode: str = "power"  # "power" (cond_spd_power) | "eigh" (cond_spd)
+
+
+def _check_beta_schedule(beta: np.ndarray, n_steps: int) -> None:
+    """A temper schedule 0 = β₀ < β₁ < … < β_n = 1, as the Woodbury flow needs."""
+    if beta.shape != (n_steps + 1,):
+        raise ValueError(
+            f"beta_schedule must have shape ({n_steps + 1},) = (n_lambda_steps + 1,); "
+            f"got {beta.shape}."
+        )
+    if not np.all(np.diff(beta) > 0.0):
+        raise ValueError("beta_schedule must be strictly increasing.")
+    if not np.all(beta[1:] > 0.0):
+        raise ValueError("beta_schedule values past index 0 must be positive "
+                         "(the flow divides by λ).")
+    if beta[0] != 0.0:
+        raise ValueError(f"beta_schedule must start at 0.0 (got {beta[0]!r}); "
+                         "the flow integrates pseudo-time from λ=0.")
+    if beta[-1] != 1.0:
+        raise ValueError(f"beta_schedule must end at 1.0 (got {beta[-1]!r}); "
+                         "the weight correction assumes full tempering to λ=1.")
+
+
+class LEDHFlowPF(_FlowPF):
+    """Local EDH flow PF (per-particle linearization). The constructor is
+    :class:`~particle_filters_tpu_torch.models.edh_particle_filter.EDHFlowPF`'s;
+    ``step``, ``run`` and ``run_trials`` also take ``beta_schedule``, an
+    optional (n_lambda_steps + 1,) temper schedule from 0 to 1 that replaces
+    the uniform λ grid (flow at β_k with Euler increments β_{k+1} − β_k)."""
+
+    def __init__(self, tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
+                 config: Optional[LEDHConfig] = None, device="cuda") -> None:
+        super().__init__(tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
+                         config or LEDHConfig(), device)
+        self.R_inv = chol_solve(self.LR, torch.eye(self.R.shape[0], device=self.device))
+
+    def _per_particle_flow(self, lam, dlam, one_minus_c, eta_i, etabar_i, eta0_i, P, P_inv,
+                           z, I):
+        """Aⁱ, bⁱ, both migrations and the log-det increment for ONE particle.
+
+        With Wⁱ = HⁱᵀR⁻¹Hⁱ and Kⁱ = P⁻¹/λ + Wⁱ (Woodbury):
+        HⁱᵀSⁱ⁻¹Hⁱ = Gⁱ = Wⁱ − Wⁱ Kⁱ⁻¹ Wⁱ and Aⁱ = −½ P Gⁱ, and
+        det(I + εAⁱ) = det(Kⁱ − (ε/2λ)Wⁱ)/det(Kⁱ), both SPD (ε ≤ λ on the
+        grid): the log-dets come from the Cholesky diagonals."""
+        Hi = self.Jh(eta_i)
+        ei = self.h(eta_i) - Hi @ eta_i
+        W = symmetrize(Hi.T @ (self.R_inv @ Hi))  # (nx, nx) PSD
+        jit_eye = 1e-8 * I
+        # Both SPD factorizations in one call: K ⪰ P⁻¹/λ is SPD by
+        # construction, so the single-shot Cholesky, not the jitter ladder.
+        Ls = chol_nojitter(torch.stack([
+            P_inv / lam + W + jit_eye,
+            P_inv / lam + one_minus_c * W + jit_eye,
+        ]))
+        LK, L_num = Ls[0], Ls[1]
+        # W K⁻¹ W = YᵀY with Y = LK⁻¹ W: one forward substitution.
+        Y = tri_solve_lower(LK, W)
+        G = symmetrize(W - Y.T @ Y)  # HᵀS⁻¹H
+        Ai = -0.5 * P @ G
+        Rin_innov = self.R_inv @ (z - ei)
+        bi = (I + 2.0 * lam * Ai) @ (
+            (I + lam * Ai) @ (P @ (Hi.T @ Rin_innov)) + Ai @ eta0_i
+        )
+        etabar_new = etabar_i + dlam * (Ai @ etabar_i + bi)
+        eta_new = eta_i + dlam * (Ai @ eta_i + bi)
+        logdet = 2.0 * (torch.sum(torch.log(torch.diagonal(L_num)))
+                        - torch.sum(torch.log(torch.diagonal(LK))))
+        return eta_new, etabar_new, logdet
+
+    def _cond_first_particle(self, lam, eta_0, P):
+        """cond(S⁰) for particle 0 only, as the reference records it."""
+        H0 = self.Jh(eta_0)
+        S0 = lam * (H0 @ P @ H0.T) + self.R
+        if self.cfg.cond_mode == "eigh":
+            return cond_spd(S0)
+        return cond_spd_power(symmetrize(S0))
+
+    def _grid(self, beta_schedule):
+        """(λ_k, ε_k) pairs as Python floats with f32 values."""
+        n_steps = max(1, int(self.cfg.n_lambda_steps))
+        if beta_schedule is None:
+            dlam, lams = _lambda_grid(n_steps)
+            return [(lam, float(np.float32(dlam))) for lam in lams]
+        if isinstance(beta_schedule, torch.Tensor):
+            beta_schedule = beta_schedule.detach().cpu().numpy()
+        beta = np.asarray(beta_schedule, np.float32)
+        _check_beta_schedule(beta, n_steps)
+        return list(zip(beta[1:].tolist(), np.diff(beta).tolist()))
+
+    def _flow(self, eta0, ts, P, z, u, beta_schedule=None):
+        n, nx = eta0.shape
+        I = torch.eye(nx, device=eta0.device)
+        P_inv = chol_solve(chol_with_jitter(P, initial=1e-9), I)
+        flow = torch.func.vmap(
+            self._per_particle_flow, in_dims=(None, None, None, 0, 0, 0, None, None, None, None)
+        )
+        eta, etabar, theta_log, conds = eta0, eta0, torch.zeros(n, device=eta0.device), []
+        for lam, dlam in self._grid(beta_schedule):
+            # c = ε/(2λ) and 1 − c in f32, as the JAX package computes them
+            c = np.float32(dlam) / (np.float32(2.0) * np.float32(lam))
+            one_minus_c = float(np.float32(1.0) - c)
+            conds.append(self._cond_first_particle(lam, eta[0], P))
+            eta, etabar, logdets = flow(lam, dlam, one_minus_c, eta, etabar, eta0, P, P_inv,
+                                        z, I)
+            theta_log = theta_log + logdets
+        return eta, theta_log, torch.stack(conds)

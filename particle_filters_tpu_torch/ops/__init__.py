@@ -3,7 +3,8 @@
 - B1, ``fused_pf.fused_step``: the fused propagate-and-weight step (Triton),
   driven by ``fused_pf.FusedSIRFilter``.
 - B2, ``resample.resample_by_starts``: systematic-resampled values (CUDA C++),
-  driven by ``resampling.hard.systematic_resample_values``.
+  driven by ``resampling.hard.systematic_resample_values`` and, for many
+  clouds in one launch, ``systematic_resample_values_batched``.
 - The profiling probes (CUDA C++), driven by ``benchmarks``: X1,
   ``window_resample.window_compare_sum``; X2,
   ``span_resample.span_compare_sum``, on the prep of ``resample_blocked``;

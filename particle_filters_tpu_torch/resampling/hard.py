@@ -8,9 +8,13 @@ can round a partial sum down): the JAX package's ``blocked_cumsum`` was a
 TPU workaround whose summation order differs, so run ends can differ by ±1
 at rare ceil boundaries; on a shared cdf and u they are integer-equal.
 
+Past max(N, M) = 2²⁴ the run ends come from the exact quantized-integer
+convention of ``resampling/exact.py``, bit-identical to the JAX package's.
+
 All functions take normalized linear weights ``w`` or log-weights ``logw``
 and draw their uniforms from the caller's ``torch.Generator``, which must
-live on the weights' device.
+live on the weights' device. :func:`systematic_resample_values_batched`
+resamples many independent clouds (trials) in one launch of kernel B2.
 """
 
 from __future__ import annotations
@@ -21,21 +25,22 @@ import torch
 
 from particle_filters_tpu_torch.core.weights import log_normalize
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
-
-# Past this the f32 product M·cdf loses unit spacing. The JAX package then
-# switches to the exact integer path of resampling/exact.py, not ported yet.
-EXACT_THRESHOLD = 1 << 24
+from particle_filters_tpu_torch.resampling.exact import (
+    EXACT_THRESHOLD,
+    exact_child_run_ends_u,
+)
 
 
 def _weights_from(
     w: Optional[torch.Tensor], logw: Optional[torch.Tensor]
 ) -> torch.Tensor:
+    """Normalized linear weights along the last axis (one cloud per row)."""
     if (w is None) == (logw is None):
         raise ValueError("Pass exactly one of w= or logw=.")
     if logw is not None:
-        logw_n, _ = log_normalize(logw)
-        return torch.exp(logw_n)
-    return w / torch.sum(w)
+        norm = log_normalize if logw.ndim == 1 else torch.func.vmap(log_normalize)
+        return torch.exp(norm(logw)[0])
+    return w / torch.sum(w, dim=-1, keepdim=True)
 
 
 def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
@@ -46,26 +51,31 @@ _ROW = 256  # row width of the running maximum
 
 
 def _running_max(x: torch.Tensor) -> torch.Tensor:
-    """``torch.cummax(x, 0).values`` of a 1-D tensor, over rows of 256:
+    """``torch.cummax(x, -1).values`` over the last axis, in rows of 256:
     the card scans one long row serially, many short rows in parallel; the
     rows' running maxima carry between them."""
-    n = x.shape[0]
+    n = x.shape[-1]
     if n <= _ROW:
-        return torch.cummax(x, dim=0).values
+        return torch.cummax(x, dim=-1).values
     rows = -(-n // _ROW)
-    padded = torch.cat([x, x[-1:].expand(rows * _ROW - n)]).view(rows, _ROW)
-    within = torch.cummax(padded, dim=1).values
-    carry = _running_max(within[:, -1])  # the maximum up to each row's end
-    out = torch.cat([within[:1], torch.maximum(within[1:], carry[:-1, None])])
-    return out.view(-1)[:n]
+    pad = x[..., -1:].expand(x.shape[:-1] + (rows * _ROW - n,))
+    padded = torch.cat([x, pad], dim=-1).view(x.shape[:-1] + (rows, _ROW))
+    within = torch.cummax(padded, dim=-1).values
+    carry = _running_max(within[..., -1])  # the maximum up to each row's end
+    out = torch.cat(
+        [within[..., :1, :], torch.maximum(within[..., 1:, :], carry[..., :-1, None])],
+        dim=-2,
+    )
+    return out.flatten(-2)[..., :n]
 
 
 def _cdf(weights: torch.Tensor) -> torch.Tensor:
-    """The nondecreasing cumulative sum of ``weights``. On the card
-    ``torch.cumsum`` is a parallel scan that can round a partial sum below
-    its predecessor where a weight is under one ulp of it; the running
-    maximum undoes that, and is the identity where the scan is sequential."""
-    return _running_max(torch.cumsum(weights, dim=0))
+    """The nondecreasing cumulative sum of ``weights`` along the last axis.
+    On the card ``torch.cumsum`` is a parallel scan that can round a partial
+    sum below its predecessor where a weight is under one ulp of it; the
+    running maximum undoes that, and is the identity where the scan is
+    sequential."""
+    return _running_max(torch.cumsum(weights, dim=-1))
 
 
 def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -76,24 +86,32 @@ def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return idx.clamp_(0, n - 1).to(torch.int32)
 
 
-def _child_run_ends_u(weights: torch.Tensor, m: int, u: torch.Tensor) -> torch.Tensor:
-    """t_j = #{i : (u + i)/M < cdf_j} = ⌈M·cdf_j − u⌉ for a given u."""
-    n = weights.shape[0]
-    if max(n, m) > EXACT_THRESHOLD:
-        raise NotImplementedError(
-            f"max(N, M) = {max(n, m)} > 2**24: f32 run ends are inexact there; "
-            "the exact integer path is not ported yet."
-        )
+def _child_run_ends_u(
+    weights: torch.Tensor, m: int, u: torch.Tensor, *, exact: Optional[bool] = None
+) -> torch.Tensor:
+    """t_j = #{i : (u + i)/M < cdf_j} = ⌈M·cdf_j − u⌉ for a given u, along
+    the last axis of ``weights`` (one u per row). Past max(N, M) = 2²⁴ the
+    exact integer path computes them; ``exact=True/False`` forces either
+    path (testing)."""
+    n = weights.shape[-1]
+    if exact is None:
+        exact = max(n, m) > EXACT_THRESHOLD
+    if exact:
+        return exact_child_run_ends_u(weights, m, u)
     cdf = _cdf(weights)
-    cdf = cdf / cdf[-1]
-    t = torch.ceil(m * cdf - u)
+    cdf = cdf / cdf[..., -1:]
+    u = torch.as_tensor(u, dtype=cdf.dtype, device=cdf.device)
+    t = torch.ceil(m * cdf - u[..., None])
     return t.clamp_(0.0, m).to(torch.int32)
 
 
-def _child_run_ends(generator, weights: torch.Tensor, m: int) -> torch.Tensor:
+def _child_run_ends(
+    generator, weights: torch.Tensor, m: int, *, exact: Optional[bool] = None
+) -> torch.Tensor:
     """The END (exclusive) of each ancestor's child run under systematic
     resampling with M positions (u + i)/M, u ~ U[0, 1) from ``generator``."""
-    return _child_run_ends_u(weights, m, _uniform(generator, (), weights))
+    u = _uniform(generator, weights.shape[:-1], weights)
+    return _child_run_ends_u(weights, m, u, exact=exact)
 
 
 def _systematic_starts(generator, weights: torch.Tensor, m: int) -> torch.Tensor:
@@ -139,15 +157,44 @@ def systematic_resample_values(
     w: Optional[torch.Tensor] = None,
     logw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Systematic resampling returning the resampled (N, d) particle VALUES.
+    """Systematic resampling returning the resampled (N, d) particle VALUES:
+    the one-cloud case of :func:`systematic_resample_values_batched`.
 
     The starts are torch ops; the values come from kernel B2
     (``ops/resample.py``) on a CUDA tensor and from its plain version on a
     CPU tensor. The values are copies, so they equal ``particles[idx]``.
     """
+    return systematic_resample_values_batched(
+        generator, particles[None],
+        w=None if w is None else w[None], logw=None if logw is None else logw[None])[0]
+
+
+def systematic_resample_values_batched(
+    generator,
+    particles: torch.Tensor,
+    *,
+    w: Optional[torch.Tensor] = None,
+    logw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Systematic resampling of B independent clouds (B, N, d) with weights
+    (B, N), one u per cloud from ``generator``, in ONE launch of kernel B2
+    (:func:`batched_starts`)."""
     weights = _weights_from(w, logw)
-    starts = _systematic_starts(generator, weights, weights.shape[0])
-    return resample_by_starts(particles.contiguous(), starts)
+    b, n, d = particles.shape
+    starts = batched_starts(weights, _uniform(generator, (b,), weights))
+    out = resample_by_starts(particles.reshape(b * n, d).contiguous(), starts)
+    return out.view(b, n, d)
+
+
+def batched_starts(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The child-run starts of B clouds (B, N) for the u's (B,), as one
+    sorted int32 array (B·N,): cloud b's starts offset by b·N. Every cloud's
+    first start is 0, so ``idx[i] = max{j : start_j ≤ i}`` never crosses a
+    cloud."""
+    b, n = weights.shape
+    t = _child_run_ends_u(weights, n, u)
+    offsets = torch.arange(b, dtype=torch.int32, device=weights.device)[:, None] * n
+    return (torch.cat([t.new_zeros((b, 1)), t[:, :-1]], dim=1) + offsets).view(-1)
 
 
 def stratified_resample(

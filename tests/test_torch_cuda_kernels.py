@@ -10,7 +10,10 @@ within 5 standard errors; X3 bit-equal; X1's variants and X2 within 1e-5,
 X2 also against B2) at a small N, plus the launch counters; N = 3000 leaves
 a ragged last block, and the probes, which take whole super-groups, run at
 3·2^14 beside a power of two. The fused filter run twice from one seed
-gives the same history bit for bit. Run on a GPU host with
+gives the same history bit for bit. B2 at the flows' d = 64 with
+trial-offset starts (a point-mass trial among them) is bit-equal to plain,
+and the exact run ends at N = 2^25 on the card equal the CPU's. Run on a
+GPU host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -122,3 +125,23 @@ def test_x2_kernel_matches_plain_and_b2(cuda_device, n):
     assert chip_smoke.check_x2(gen, n, cuda_device) <= chip_smoke.PROBE_TOL
     torch.cuda.synchronize()
     assert span_compare_sum.launches == before + 8  # four regimes on its path, twice each
+
+
+@pytest.mark.parametrize("trials,n", [(5, 300), (3, 4096)])
+def test_b2_trial_offset_starts_d64_equal_plain(cuda_device, trials, n):
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.resample import resample_by_starts
+
+    before = resample_by_starts.launches
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    assert chip_smoke.check_b2_trials(gen, trials, n, 64, cuda_device) == 0.0
+    torch.cuda.synchronize()
+    assert resample_by_starts.launches == before + 1  # one launch for all trials
+
+
+def test_exact_run_ends_card_equals_cpu_at_2_25(cuda_device):
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    chip_smoke.check_exact(gen, cuda_device)

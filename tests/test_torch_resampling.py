@@ -68,8 +68,12 @@ def test_running_max_equals_cummax(n):
 
 
 def test_inexact_sizes_raise():
-    with pytest.raises(NotImplementedError):
-        thard._child_run_ends_u(torch.ones(4) / 4, (1 << 24) + 1, torch.tensor(0.5))
+    """Past 2²⁴ the exact path takes over (no longer an error); past its
+    M = 2²⁷ limit the run ends raise, as in the JAX package."""
+    t = thard._child_run_ends_u(torch.ones(4) / 4, (1 << 24) + 1, torch.tensor(0.5))
+    assert int(t[-1]) == (1 << 24) + 1
+    with pytest.raises(ValueError):
+        thard._child_run_ends_u(torch.ones(4) / 4, (1 << 27) + 1, torch.tensor(0.5))
 
 
 @pytest.mark.parametrize("d", [1, 3])
