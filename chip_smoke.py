@@ -10,7 +10,10 @@ PyTorch version on the card at N = 2^20 (B2 also at N = 3000, a ragged last
 block; B1 and B2 also at the exact path's N = 2^25, B2 there on the exact
 integer starts; B1's row and its counter also after CUDA-graph replays; X1
 and X2 within 1e-5: they telescope f32 differences in another order; X2
-also against B2). Then:
+also against B2; X1 and X2 both on their sorted windows, where they search,
+and on shuffled ones, where they walk; X1 also at W = 128 and 6144 and on a
+NaN start, X2 also launched past its span budget, where exactly the
+over-budget super-groups get NaN). Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
@@ -35,8 +38,9 @@ also against B2). Then:
 - each kernel timed against its plain version, its bound and, where one
   PyTorch call computes the same function, that call; B1 also with
   injected normals and over its programs per SM, B2 also at a point mass
-  and at the flows' d = 64 shapes, X3 against ``torch.add`` in alternating
-  pairs; the exact run ends at 2^25 beside the f32 ones at 2^24.
+  and at the flows' d = 64 shapes, X1 and X2 on sorted windows beside the
+  same windows shuffled, X3 against ``torch.add`` in alternating pairs; the
+  exact run ends at 2^25 beside the f32 ones at 2^24.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -294,22 +298,58 @@ def check_x3(device) -> float:
     return 0.0
 
 
-def check_x1(n, device) -> float:
-    """Every X1 variant against its plain version on the windows of
-    ``exp_kernel_var.make_inputs`` at N = ``n``: counts equal, sums within
-    PROBE_TOL."""
+def _shuffled(gen, *arrays):
+    """``arrays`` with the entries of each last-axis row permuted, one
+    permutation a row shared by all of them: X1's windows, X2's rows."""
+    shape = (-1, arrays[0].shape[-1])
+    keys = torch.rand(arrays[0].reshape(shape).shape, generator=gen, device=arrays[0].device)
+    perm = torch.argsort(keys, dim=1)
+    return tuple(torch.gather(a.reshape(shape), 1, perm).reshape(a.shape) for a in arrays)
+
+
+def _sorted_rows(a):
+    """Whether each last-axis row of ``a`` is nondecreasing (NaN is not)."""
+    return (a[..., 1:] >= a[..., :-1]).all(-1)
+
+
+def _check_x1(label, s_win, d_win, transpose, sum_only) -> float:
+    out = x1.window_compare_sum(s_win, d_win, sum_only=sum_only, transpose=transpose)
+    ref = x1.window_compare_sum_reference(s_win, d_win, sum_only=sum_only, transpose=transpose)
+    err = (out - ref).abs().max().item()
+    if sum_only:
+        _check(torch.equal(out, ref), f"X1 {label}: counts == plain")
+    _check(err <= PROBE_TOL, f"X1 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
+    return err
+
+
+def check_x1(gen, n, device) -> float:
+    """X1 against its plain version on the windows of
+    ``exp_kernel_var.make_inputs``: the six variants at N = ``n``, v0-v2 at
+    W = 128 (N = ``n``) and W = 6144 (N ≤ 2^16: the plain version holds an
+    (N, W) mask), each on its sorted windows (the search) and with every
+    window shuffled (the walk); and a window holding a NaN start. Counts
+    equal, sums within PROBE_TOL."""
+    cases = [(*variant, n) for variant in exp_kernel_var.VARIANTS]
+    for q, n_q in ((1, n), (48, min(n, 1 << 16))):
+        cases += [(f"{label[:2]} at W={q * x1.SUB}", q, sg, transpose, sum_only, n_q)
+                  for label, _, sg, transpose, sum_only in exp_kernel_var.VARIANTS[:3]]
     max_err = 0.0
-    for label, q, sg, transpose, sum_only in exp_kernel_var.VARIANTS:
-        s_win, d_win = exp_kernel_var.make_inputs(q, sg, n=n, device=device)
-        out = x1.window_compare_sum(s_win, d_win, sum_only=sum_only, transpose=transpose)
-        ref = x1.window_compare_sum_reference(
-            s_win, d_win, sum_only=sum_only, transpose=transpose)
-        err = (out - ref).abs().max().item()
-        max_err = max(max_err, err)
-        if sum_only:
-            _check(torch.equal(out, ref), f"X1 {label}: counts == plain")
-        _check(err <= PROBE_TOL, f"X1 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
-        print(f"X1 {label}: max |kernel - plain| = {err:.3e} (N={n})")
+    for label, q, sg, transpose, sum_only, n_case in cases:
+        s_win, d_win = exp_kernel_var.make_inputs(q, sg, n=n_case, device=device)
+        _check(bool(_sorted_rows(s_win).all()), f"X1 {label}: every window sorted")
+        shuffled = _shuffled(gen, s_win, d_win)
+        unsorted = int((~_sorted_rows(shuffled[0])).sum())
+        errs = [_check_x1(f"{label}, {kind}", s, d, transpose, sum_only)
+                for kind, (s, d) in (("sorted", (s_win, d_win)), ("shuffled", shuffled))]
+        max_err = max(max_err, *errs)
+        print(f"X1 {label}: max |kernel - plain| = {errs[0]:.3e} sorted, {errs[1]:.3e} with "
+              f"each window shuffled ({unsorted} of {s_win.shape[0] * sg} unsorted) (N={n_case})")
+    s_win, d_win = exp_kernel_var.make_inputs(4, 64, n=n, device=device)
+    s_win[0, 1, 5] = float("nan")  # one window fails the sortedness vote
+    for transpose, sum_only in ((True, False), (True, True)):
+        label = f"a NaN start, sum_only={sum_only}"
+        max_err = max(max_err, _check_x1(label, s_win, d_win, transpose, sum_only))
+        print(f"X1 {label}: equal to plain (N={n})")
     return max_err
 
 
@@ -329,32 +369,58 @@ def _x2_cases(gen, n, device):
     yield "weight desert", desert / desert.sum(), "spanD"
 
 
+def _check_x2_budget(label, chunks, a0) -> float:
+    """X2 launched on ``a0`` as it is, past the wrapper's refusal: NaN for
+    exactly the super-groups whose span exceeds ROWS, the plain values
+    (within PROBE_TOL) everywhere else."""
+    a0s = a0.view(-1, x2.SG)
+    over = a0s[:, -1] + x2.Q - a0s[:, 0] > x2.ROWS
+    out = x2.span_compare_sum(*chunks, a0).view(a0s.shape[0], -1)
+    ref = x2.span_compare_sum_reference(*chunks, a0).view(a0s.shape[0], -1)
+    _check(bool(out[over].isnan().all()), f"X2 {label}: NaN in every over-budget super-group")
+    _check(not bool(out[~over].isnan().any()), f"X2 {label}: no NaN within the budget")
+    err = (out[~over] - ref[~over]).abs().max().item() if bool((~over).any()) else 0.0
+    _check(err <= PROBE_TOL, f"X2 {label}: max |kernel - plain| {err} <= {PROBE_TOL} in budget")
+    print(f"X2 {label:22s}: launched anyway: NaN in exactly the {int(over.sum())} of "
+          f"{over.numel()} super-groups over budget, elsewhere max |kernel - plain| = {err:.3e}")
+    return err
+
+
 def check_x2(gen, n, device) -> float:
     """X2 against its plain version and against B2 on the same starts on
-    its path, and refused off it."""
+    its path, and against plain with each row's entries shuffled (the
+    walk); refused off its path, and launched there anyway through
+    ``span_compare_sum``, where only the over-budget super-groups get NaN."""
     max_err = 0.0
     for label, w, refusal in _x2_cases(gen, n, device):
         starts = _systematic_starts(gen, w, n)
         a0, _ = exp_resample_dma.rank_a0(starts, n, n // x2.SUB)
         p = torch.randn((n, 1), generator=gen, device=device)
+        chunks = fine_chunks(starts, p, n // x2.SUB, x2.ROWS)
         if refusal is not None:
             try:
                 x2.span_resample_values(starts, p, a0)
             except ValueError as e:
                 _check(refusal in str(e), f"X2 {label}: refused for its {refusal} ({e})")
                 print(f"X2 {label:22s}: refused ({e})")
+                max_err = max(max_err, _check_x2_budget(label, chunks, a0))
                 continue
             raise RuntimeError(f"check failed: X2 {label}: not refused")
-        chunks = fine_chunks(starts, p, n // x2.SUB, x2.ROWS)
         out = x2.span_compare_sum(*chunks, a0)
         ref = x2.span_compare_sum_reference(*chunks, a0)
         vs_b2 = x2.span_resample_values(starts, p, a0) - b2.resample_by_starts(p, starts)
+        shuffled = (*_shuffled(gen, *chunks[:2]), chunks[2])
+        err_shuf = (x2.span_compare_sum(*shuffled, a0)
+                    - x2.span_compare_sum_reference(*shuffled, a0)).abs().max().item()
         err, err_b2 = (out - ref).abs().max().item(), vs_b2.abs().max().item()
-        max_err = max(max_err, err)
+        max_err = max(max_err, err, err_shuf)
         _check(err <= PROBE_TOL, f"X2 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
         _check(err_b2 <= PROBE_TOL, f"X2 {label}: max |X2 - B2| {err_b2} <= {PROBE_TOL}")
+        _check(err_shuf <= PROBE_TOL,
+               f"X2 {label}, rows shuffled: max |kernel - plain| {err_shuf} <= {PROBE_TOL}")
         print(f"X2 {label:22s}: spanD {int(x2.span_rows(a0))}, max |kernel - plain| = "
-              f"{err:.3e}, max |X2 - B2| = {err_b2:.3e} (N={n})")
+              f"{err:.3e}, max |X2 - B2| = {err_b2:.3e}, rows shuffled: max |kernel - plain| = "
+              f"{err_shuf:.3e} (N={n})")
     return max_err
 
 
@@ -697,14 +763,20 @@ def time_b2_trials(gen, device, card):
     return out
 
 
+def _search_ops(n, w) -> int:
+    """The least operations of a windowed compare-sum on sorted windows of
+    ``w`` entries: a binary search of ceil(log2 w) compares and 2 more an
+    output, and a scan of ``w`` adds a window."""
+    return n * (math.ceil(math.log2(w)) + 2) + (n // x1.SUB) * w
+
+
 def _x1_timed(gen, n, device):
     _, q, sg, _, _ = exp_kernel_var.VARIANTS[0]  # v0, the probe's subject
     sets = [exp_kernel_var.make_inputs(q, sg, n=n, device=device, seed=k) for k in range(8)]
     s_win, d_win = sets[0]
     out_bytes = s_win.shape[0] * sg * x1.SUB * 4
-    ops = 3 * s_win.numel() * x1.SUB  # compare, select, add per (output, window entry)
     return (x1.window_compare_sum, x1.window_compare_sum_reference, None, sets,
-            _bound(_nbytes(s_win, d_win) + out_bytes, ops))
+            _bound(_nbytes(s_win, d_win) + out_bytes, _search_ops(n, q * x1.SUB)))
 
 
 def _x2_timed(gen, n, device):
@@ -715,9 +787,27 @@ def _x2_timed(gen, n, device):
         a0, _ = exp_resample_dma.rank_a0(starts, n, n // x2.SUB)
         p = torch.randn((n, 1), generator=gen, device=device)
         sets.append((*fine_chunks(starts, p, n // x2.SUB, x2.ROWS), a0))
-    ops = 3 * n * x2.Q * x2.SUB  # compare, select, add per (output, window entry)
     return (x2.span_compare_sum, x2.span_compare_sum_reference, None, sets,
-            _bound(_nbytes(*sets[0]) + n * 4, ops))
+            _bound(_nbytes(*sets[0]) + n * 4, _search_ops(n, x2.Q * x2.SUB)))
+
+
+def time_probe_branches(gen, n, device, card) -> None:
+    """X1 (v0) and X2 at N = ``n`` on their sorted windows (the search) and
+    on the same windows with each window's entries (X2: each row's)
+    shuffled, the same bytes through the walk: device time in turns
+    (sorted, shuffled, shuffled, sorted), beside the byte bound."""
+    for name, make in (("X1", _x1_timed), ("X2", _x2_timed)):
+        kern, _, _, sets, bound = make(gen, n, device)
+        shuffled = [(*_shuffled(gen, *s[:2]), *s[2:]) for s in sets]
+        fns = {"sorted": _rotating(kern, sets), "shuffled": _rotating(kern, shuffled)}
+        times = {label: [] for label in fns}
+        for label in ("sorted", "shuffled", "shuffled", "sorted"):
+            times[label].append(_graph_ms(fns[label]))
+        ms = {label: sum(ts) / len(ts) for label, ts in times.items()}
+        print(f"{name} at N={n}: device {ms['sorted']:.6f} ms on sorted windows (search), "
+              f"{ms['shuffled']:.6f} ms shuffled (walk): {ms['shuffled'] / ms['sorted']:.2f}x; "
+              f"bound {bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms['sorted']:.3f} and "
+              f"{bound[0] / ms['shuffled']:.3f} of it  [{card}]")
 
 
 def _x3_timed(gen, n, device):
@@ -840,7 +930,7 @@ def main() -> None:
     errs = {"B2": max([check_b2(gen, n, device) for n in (N, B2_RAGGED_N, EXACT_N)]
                       + [check_b2_trials(gen, t, n, SNLG_D, device) for t, n in B2_TRIAL_SHAPES]),
             "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
-            "X1": check_x1(N, device), "X2": check_x2(gen, N, device)}
+            "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device)}
     check_exact(gen, device)
     torch.cuda.synchronize()
 
@@ -854,6 +944,7 @@ def main() -> None:
     time_b1_variants(gen, N, device, card)
     time_b2_balance(gen, N, device, card)
     time_b2_trials(gen, device, card)
+    time_probe_branches(gen, N, device, card)
     time_run_ends(gen, device, card)
     x3_ms, add_ms = time_x3_pairs(gen, card)
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])

@@ -1,4 +1,4 @@
-// Probe X2: span-staged compare-and-sum of the blocked systematic resample, d = 1.
+// Probe X2: span-checked compare-and-sum of the blocked systematic resample, d = 1.
 //
 // Replaces benchmarks/exp_resample_dma.py::_dma_kernel. Outputs are cut into
 // sub-groups of 128 and particles into fine chunks of 128; a0[b] is the fine
@@ -12,100 +12,114 @@
 // The sum over a sorted window telescopes to p[j(pos)] - base, so out is the
 // resampled value up to f32 rounding of partial sums of up to Q*128 terms.
 //
-// A block takes a super-group of SG sub-groups (SG*128 = 8192 outputs). Since
-// a0 is nondecreasing, the rows its sub-groups read form one contiguous span
-// [a0[first], a0[last] + Q), and the block copies just that span of starts,
-// diffs and bases into shared memory with coalesced 16-byte loads (the TPU
-// kernel's one DMA of ROWS rows into VMEM). The wrapper refuses a0 whose
-// span exceeds the budget of rows_max rows; a block that meets one anyway
-// writes NaN rather than read past its shared memory. Each warp then takes
-// one sub-group at a time, each lane four output positions, and walks the Q
-// rows in shared memory: every lane of a warp reads the same 16-byte vector
-// (a broadcast), and each vector feeds four positions.
+// The TPU kernel copies, for each super-group of SG sub-groups, the span of
+// rows [a0[first], a0[last] + Q) into VMEM with one DMA of ROWS rows. This
+// kernel keeps that contract and reads it from a0 alone: a super-group whose
+// span exceeds rows_max (ROWS), or leaves the n_rows rows, gets NaN, and so
+// does a sub-group whose window leaves its super-group's span (a0 not
+// nondecreasing). It stages nothing more than each sub-group's own window:
+// the rows that neighbouring sub-groups share come from the 50 MB L2.
 //
-// What bounds it on the H100: operations. At N = 2^20 it moves about 12 MiB
-// (3.8 us at 3.35 TB/s) but makes 2^20 * 384 compare-select-add triples,
-// 1.2e9 fp32 operations (18 us at 67 TFLOP/s). Positions are f32, exact
-// below 2^24. The shared span needs rows_max * 257 * 4 bytes (128.5 KB at
-// rows_max = 128), above the 48 KB default, so the first launch raises the
-// kernel's dynamic shared memory limit. Plain C interface, bound with ctypes.
+// What bounds it on the H100: bytes. The windows are sorted (sorted_window.cuh
+// says why), so an output's count is an upper-bound search and its sum a
+// scan, not a walk of Q*128 entries: at N = 2^20 the search and the scan take
+// at most N*(9 + 2) + N/128 * 384 = 1.5e7 operations, while the function
+// reads 4.26 MB of starts, 4.26 MB of diffs, the bases and a0 (0.03 MB each)
+// and writes 4.19 MB: 12.78 MB, 3.8 us at 3.35 TB/s. A warp takes one
+// sub-group at a time: it stages the window's Q rows of starts and diffs
+// (3 KB, contiguous) with 16-byte cp.async copies and runs
+// sorted_window::window_values (one pass over the starts that checks they
+// are sorted and marks where their runs end, a max-scan of the marks for the
+// counts and a shuffle scan of the diffs for the sums, or the walk where the
+// window is not sorted), then adds the chunk base. Each lane loads the a0
+// entries and base of one of the warp's next 32 sub-groups, so those loads
+// wait in line behind no search. The grid is persistent (blocks of 8 warps,
+// 4 a SM) and each warp has two buffers, so the next sub-group's window is
+// in flight while the current one is searched. Positions are f32, exact
+// below 2^24. Plain C interface, bound with ctypes.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "sorted_window.cuh"
+
 namespace {
 
-constexpr int kSub = 128;
-constexpr int kThreads = 512;
-constexpr int kPerLane = kSub / 32;  // output positions per lane
+using sorted_window::kPerLane;
+using sorted_window::kSub;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kWarps = 8;
+
+__global__ void __launch_bounds__(kWarps * 32)
 span_resample_kernel(const float* __restrict__ starts_f,
                      const float* __restrict__ diffs,
                      const float* __restrict__ base,
                      const int* __restrict__ a0, float* __restrict__ out,
-                     int n_rows, int sg, int q, int rows_max) {
+                     int n_rows, int n_subs, int sg, int q, int rows_max, int vec16) {
   extern __shared__ float4 smem4[];
-  float* s_sh = reinterpret_cast<float*>(smem4);  // rows_max x 128 starts
-  float* d_sh = s_sh + rows_max * kSub;           // rows_max x 128 diffs
-  float* b_sh = d_sh + rows_max * kSub;           // rows_max chunk bases
-
-  const int sub0 = blockIdx.x * sg;
-  const int first = a0[sub0];
-  const int rows = a0[sub0 + sg - 1] + q - first;
-  float* out_blk = out + static_cast<long long>(sub0) * kSub;
-  if (first < 0 || rows > rows_max || first + rows > n_rows) {
-    for (int t = threadIdx.x; t < sg * kSub; t += kThreads) out_blk[t] = NAN;
-    return;
-  }
-
-  const float4* s_src = reinterpret_cast<const float4*>(starts_f + static_cast<long long>(first) * kSub);
-  const float4* d_src = reinterpret_cast<const float4*>(diffs + static_cast<long long>(first) * kSub);
-  float4* s_dst = reinterpret_cast<float4*>(s_sh);
-  float4* d_dst = reinterpret_cast<float4*>(d_sh);
-  for (int v = threadIdx.x; v < rows * (kSub / 4); v += kThreads) {
-    s_dst[v] = s_src[v];
-    d_dst[v] = d_src[v];
-  }
-  for (int r = threadIdx.x; r < rows; r += kThreads) b_sh[r] = base[first + r];
-  __syncthreads();
-
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = warp; i < sg; i += kThreads / 32) {
-    const int off = a0[sub0 + i] - first;
-    float* dst = out_blk + i * kSub + lane;
-    if (off < 0 || off + q > rows) {  // a0 not nondecreasing
-      for (int j = 0; j < kPerLane; ++j) dst[32 * j] = NAN;
-      continue;
-    }
-    float pos[kPerLane];
-    float acc[kPerLane];
-    for (int j = 0; j < kPerLane; ++j) {
-      pos[j] = static_cast<float>((sub0 + i) * kSub + lane + 32 * j);
-      acc[j] = 0.0f;
-    }
-    for (int r = 0; r < q; ++r) {
-      const float4* srow = reinterpret_cast<const float4*>(s_sh + (off + r) * kSub);
-      const float4* drow = reinterpret_cast<const float4*>(d_sh + (off + r) * kSub);
-      float racc[kPerLane];
-      for (int j = 0; j < kPerLane; ++j) racc[j] = 0.0f;
-#pragma unroll 4
-      for (int v = 0; v < kSub / 4; ++v) {
-        const float4 s = srow[v];
-        const float4 d = drow[v];
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          racc[j] += (s.x <= pos[j]) ? d.x : 0.0f;
-          racc[j] += (s.y <= pos[j]) ? d.y : 0.0f;
-          racc[j] += (s.z <= pos[j]) ? d.z : 0.0f;
-          racc[j] += (s.w <= pos[j]) ? d.w : 0.0f;
-        }
+  const int w = q * kSub;
+  float* bufs = reinterpret_cast<float*>(smem4) + warp * 2 * 2 * w;
+  int* marks = reinterpret_cast<int*>(smem4) + kWarps * 2 * 2 * w + warp * kSub;
+  const int stride = gridDim.x * kWarps;
+
+  // Lane l holds the window row of the warp's sub-group i0 + l (-1 where the
+  // contract writes NaN) and its chunk base, all 32 loaded at once, so that
+  // no load of a0 or of a base waits in line behind a window's search.
+  int row_l = -1;
+  float base_l = 0.0f;
+  auto fetch = [&](int i0) {
+    const int b = blockIdx.x * kWarps + warp + (i0 + lane) * stride;
+    row_l = -1;
+    if (b < n_subs) {
+      const int sup0 = b - b % sg;
+      const int first = __ldg(a0 + sup0);
+      const int rows = __ldg(a0 + sup0 + sg - 1) + q - first;
+      const int off = __ldg(a0 + b) - first;
+      if (first >= 0 && rows <= rows_max && first + rows <= n_rows && off >= 0 &&
+          off + q <= rows) {
+        row_l = first + off;
       }
-      for (int j = 0; j < kPerLane; ++j) acc[j] += racc[j];
     }
-    const float b = b_sh[off];
-    for (int j = 0; j < kPerLane; ++j) dst[32 * j] = acc[j] + b;
+    base_l = row_l >= 0 ? __ldg(base + row_l) : 0.0f;
+  };
+  auto stage = [&](int row, int buf) {
+    if (row >= 0) {
+      float* dst = bufs + buf * 2 * w;
+      const long long off = static_cast<long long>(row) * kSub;
+      sorted_window::stage(dst, starts_f + off, w, vec16, lane);
+      sorted_window::stage(dst + w, diffs + off, w, vec16, lane);
+    }
+    sorted_window::commit();  // an empty group past the end keeps the count
+  };
+
+  fetch(0);
+  int row = __shfl_sync(sorted_window::kFull, row_l, 0);
+  int buf = 0;
+  stage(row, buf);
+  for (int i = 0, b = blockIdx.x * kWarps + warp; b < n_subs; ++i, b += stride) {
+    const float bv = __shfl_sync(sorted_window::kFull, base_l, i % 32);
+    if (i % 32 == 31) fetch(i + 1);
+    const int row_next = __shfl_sync(sorted_window::kFull, row_l, (i + 1) % 32);
+    stage(row_next, buf ^ 1);
+    sorted_window::wait_all_but_one();
+    __syncwarp();
+    float v[kPerLane];
+    if (row >= 0) {
+      float* s = bufs + buf * 2 * w;
+      sorted_window::window_values(s, s + w, w, b * kSub, marks, lane, v);
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) v[j] += bv;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) v[j] = NAN;
+    }
+    reinterpret_cast<float4*>(out + static_cast<long long>(b) * kSub)[lane] =
+        make_float4(v[0], v[1], v[2], v[3]);
+    __syncwarp();  // every lane is done with this buffer before it is refilled
+    buf ^= 1;
+    row = row_next;
   }
 }
 
@@ -116,16 +130,15 @@ extern "C" int pf_span_resample(const float* starts_f, const float* diffs,
                                 int n_rows, int n_super, int sg, int q,
                                 int rows_max, void* stream) {
   if (n_super <= 0) return 0;
-  const int smem = (2 * kSub + 1) * rows_max * static_cast<int>(sizeof(float));
-  static int smem_set = 0;  // the largest limit set so far
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        span_resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
-  }
-  span_resample_kernel<<<n_super, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      starts_f, diffs, base, a0, out, n_rows, sg, q, rows_max);
+  const int n_subs = n_super * sg;
+  const size_t smem = kWarps * (2 * 2 * static_cast<size_t>(q) * kSub * sizeof(float) +
+                                kSub * sizeof(int));
+  int grid = 0;
+  const cudaError_t err = sorted_window::persistent_grid(
+      span_resample_kernel, kWarps, smem, (n_subs + kWarps - 1) / kWarps, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  span_resample_kernel<<<grid, 32 * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      starts_f, diffs, base, a0, out, n_rows, n_subs, sg, q, rows_max,
+      sorted_window::aligned16(starts_f, diffs));
   return static_cast<int>(cudaGetLastError());
 }

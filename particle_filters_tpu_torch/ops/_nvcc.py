@@ -2,8 +2,9 @@
 with a plain C interface, and load it with ``ctypes``.
 
 The library goes to ``build/torch_kernels/`` beside the package, under a
-name keyed on a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the previous build. Nothing is built at import: the
+name keyed on a hash of the flags, the sources and the shared headers
+(``csrc/*.cuh``), so an edit of either rebuilds and an unchanged tree reuses
+the previous build. Nothing is built at import: the
 first call of a kernel's wrapper on a CUDA tensor builds it.
 """
 
@@ -36,15 +37,22 @@ def _nvcc() -> str:
     return found
 
 
+def build_key(*sources: str) -> str:
+    """The hash that names a build: the flags, ``csrc/<sources>`` and every
+    header ``csrc/*.cuh`` (a source may include any of them), by name and
+    bytes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 @functools.cache
 def load_library(name: str, *sources: str) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>`` from ``csrc/<sources>``."""
     paths = [CSRC / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    lib_path = BUILD_DIR / f"lib{name}_{build_key(*sources)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")

@@ -16,7 +16,12 @@ It computes what the TPU kernel computes, telescoped sums of particle
 differences over a Q = 3-row window plus the chunk base (``csrc/
 span_resample.cu``, whose note says what bounds it), so its values equal
 kernel B2's (``ops/resample.py``) on the same starts to f32 rounding of
-partial sums of up to 384 terms, not bit for bit.
+partial sums of up to 384 terms, not bit for bit. The kernel checks each
+super-group's span from ``a0`` alone and stages only each sub-group's own
+Q rows, ahead by ``cp.async``, one warp a sub-group; since a window is
+sorted, one merge of its starts with the 128 positions gives the counts and
+a scan of its differences the sums (``csrc/sorted_window.cuh``), and a
+window that is not sorted is walked entry by entry.
 """
 
 from __future__ import annotations

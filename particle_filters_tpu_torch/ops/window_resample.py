@@ -12,10 +12,15 @@ differences (``benchmarks/exp_kernel_var.py::make_inputs`` builds them).
 ``sum_only`` counts the selected entries instead; ``transpose=False``
 writes (S, 128, SG) in place of (S, SG, 128).
 
-``csrc/window_resample.cu`` runs one block per sub-group with the window in
-shared memory; its note says what bounds it. The sums telescope over up to
-W terms in another order than the plain version's reduction, so the two
-agree to f32 rounding of partial sums of that length, not bit for bit.
+``csrc/window_resample.cu`` runs one warp per sub-group with the window in
+shared memory, staged ahead by ``cp.async``; its note says what bounds it.
+Since the windows are sorted, the kernel finds the counts of a sub-group's
+128 positions at once, by marking where the runs of starts end and taking a
+running max of the marks, and their sums in a scan of the differences
+(``csrc/sorted_window.cuh``); a window that is not sorted is walked entry by
+entry. The sums telescope in another order than the plain version's
+reduction, so the two agree to f32 rounding of partial sums of up to W
+terms, not bit for bit; the counts are exact.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from particle_filters_tpu_torch.ops.resample_blocked import SUB
 _LIB = "pf_window_resample"
 _SOURCES = ("window_resample.cu",)
 _MAX_POS = 1 << 24  # positions compare in f32, exact below 2**24
-_MAX_W = 6144  # 2·W floats of shared memory stay within 48 KB
+_MAX_W = 6144  # a warp's two buffers of 2·W floats stay within 96 KB of shared memory
 
 
 def window_compare_sum_reference(s_win, d_win, *, sum_only=False, transpose=True):

@@ -7,7 +7,10 @@ injected normals at rtol 1e-5 / atol 1e-6, its row at rtol 1e-4, its
 counter back to 0 and its trigger and carry matching the row after a launch
 and after CUDA-graph replays, and its Philox normals' mean and variance
 within 5 standard errors; X3 bit-equal; X1's variants and X2 within 1e-5,
-X2 also against B2) at a small N, plus the launch counters; N = 3000 leaves
+X2 also against B2, both on sorted windows and on shuffled ones, X1 also at
+W = 128 and 6144 and on a NaN start; X2 launched past its span budget
+writes NaN in exactly the over-budget super-groups) at a small N, plus the
+launch counters; N = 3000 leaves
 a ragged last block, and the probes, which take whole super-groups, run at
 3·2^14 beside a power of two. The fused filter run twice from one seed
 gives the same history bit for bit. B2 at the flows' d = 64 with
@@ -109,9 +112,11 @@ def test_x1_kernel_matches_plain(cuda_device, n):
     from particle_filters_tpu_torch.ops.window_resample import window_compare_sum
 
     before = window_compare_sum.launches
-    assert chip_smoke.check_x1(n, cuda_device) <= chip_smoke.PROBE_TOL
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    assert chip_smoke.check_x1(gen, n, cuda_device) <= chip_smoke.PROBE_TOL
     torch.cuda.synchronize()
-    assert window_compare_sum.launches == before + 6  # the six variants
+    # (six variants + v0-v2 at W = 128 and 6144) x (sorted, shuffled) + 2 on a NaN start
+    assert window_compare_sum.launches == before + 26
 
 
 @pytest.mark.parametrize("n", PROBE_SIZES)
@@ -124,7 +129,49 @@ def test_x2_kernel_matches_plain_and_b2(cuda_device, n):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     assert chip_smoke.check_x2(gen, n, cuda_device) <= chip_smoke.PROBE_TOL
     torch.cuda.synchronize()
-    assert span_compare_sum.launches == before + 8  # four regimes on its path, twice each
+    # four regimes on its path, three times each (plain, B2, shuffled rows), and
+    # the two refused regimes launched once each past the refusal
+    assert span_compare_sum.launches == before + 14
+
+
+def test_x1_misaligned_windows_equal_plain(cuda_device):
+    """Contiguous windows that start 4 bytes past a 16-byte boundary take the
+    kernel's word-by-word copies, with the same result."""
+    import chip_smoke
+
+    from particle_filters_tpu_torch.benchmarks import exp_kernel_var
+
+    s_win, d_win = exp_kernel_var.make_inputs(4, 64, n=1 << 16, device=cuda_device)
+    s_off = torch.empty(s_win.numel() + 1, device=cuda_device)[1:].view(s_win.shape)
+    d_off = torch.empty(d_win.numel() + 1, device=cuda_device)[1:].view(d_win.shape)
+    s_off.copy_(s_win)
+    d_off.copy_(d_win)
+    assert s_off.data_ptr() % 16 and s_off.is_contiguous()
+    for transpose, sum_only in ((True, False), (False, False), (True, True)):
+        assert chip_smoke._check_x1("misaligned", s_off, d_off, transpose, sum_only) \
+            <= chip_smoke.PROBE_TOL
+
+
+def test_x2_nan_for_exactly_the_over_budget_super_groups(cuda_device):
+    """A weight desert spreads some super-groups over more than ROWS rows;
+    launched anyway, the kernel writes NaN there and the plain values
+    elsewhere."""
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops import span_resample as x2
+    from particle_filters_tpu_torch.ops.resample_blocked import fine_chunks
+    from particle_filters_tpu_torch.resampling.hard import _systematic_starts
+
+    n = 1 << 16
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    desert = torch.where(torch.arange(n, device=cuda_device) < n // 2, 1e-3, 1.0)
+    starts = _systematic_starts(gen, desert / desert.sum(), n)
+    a0, _ = chip_smoke.exp_resample_dma.rank_a0(starts, n, n // x2.SUB)
+    a0s = a0.view(-1, x2.SG)
+    assert bool((a0s[:, -1] + x2.Q - a0s[:, 0] > x2.ROWS).any())
+    p = torch.randn((n, 1), generator=gen, device=cuda_device)
+    chunks = fine_chunks(starts, p, n // x2.SUB, x2.ROWS)
+    assert chip_smoke._check_x2_budget("weight desert", chunks, a0) <= chip_smoke.PROBE_TOL
 
 
 @pytest.mark.parametrize("trials,n", [(5, 300), (3, 4096)])

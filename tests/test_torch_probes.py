@@ -6,7 +6,10 @@ profile, on the CPU. Also: the port's entry points default to the card.
 X1 and X2 sum telescoping f32 differences over up to Q·128 terms in another
 order than the TPU probes, so their values are held at atol 1e-5 on N(0, 1)
 particles, the bar of ``benchmarks/exp_resample_dma.py:175``; ranks, ``a0``
-and windows are held exactly.
+and windows are held exactly. The CUDA kernels' premise is tested here too:
+the windows both probes get are sorted, and on them a search and a scan give
+what the TPU kernels give, while on shuffled windows they do not. So does
+the build key of the CUDA libraries, which covers the shared headers.
 """
 
 import functools
@@ -30,6 +33,7 @@ from particle_filters_tpu_torch.benchmarks import exp_kernel_var as tkv
 from particle_filters_tpu_torch.benchmarks import exp_resample_dma as trd
 from particle_filters_tpu_torch.benchmarks import profile_small_n as tsn
 from particle_filters_tpu_torch.interop import params_from_jax, state_from_jax
+from particle_filters_tpu_torch.ops import _nvcc
 from particle_filters_tpu_torch.ops.fused_pf import SVModel
 from particle_filters_tpu_torch.ops.launch_probe import add_one, add_one_reference
 from particle_filters_tpu_torch.ops.resample import resample_by_starts_reference
@@ -40,9 +44,12 @@ from particle_filters_tpu_torch.ops.resample_blocked import (
     rank_window,
 )
 from particle_filters_tpu_torch.ops.span_resample import (
+    Q,
     ROWS,
+    SG,
     span_checks,
     span_compare_sum,
+    span_compare_sum_reference,
     span_resample_values,
 )
 from particle_filters_tpu_torch.ops.window_resample import (
@@ -247,6 +254,220 @@ def test_x2_wrapper_checks():
     starts_f, diffs, base = fine_chunks(starts, p, 64, ROWS - 1)  # one row short
     with pytest.raises(ValueError, match="rows"):
         span_compare_sum(starts_f, diffs, base, a0)
+
+
+# --- the kernels' premise: sorted windows, a search and a scan --------------
+# The CUDA kernels of X1 and X2 take a window's count as an upper-bound
+# search over its starts and its sum from a scan of its differences, which
+# is the windowed function only where the window is sorted; they check that
+# and walk any other window.
+PREMISE_N = 1 << 14
+PREMISE_CASES = ["0.3", "1.0", "3.0", "point mass"]  # lognormal sigma, or a point mass
+X2_CASES = PREMISE_CASES + ["desert"]
+X2_N = 65536  # where the desert leaves super-groups over the span budget
+
+
+def _sorted_rows(a):
+    return (a[..., 1:] >= a[..., :-1]).all(-1)
+
+
+def _search_scan(s, d, pos):
+    """(counts, sums) of rows ``s``, ``d`` (R, W) at positions ``pos`` (R, P):
+    j = #{s ≤ pos} by search, the sum the scan of d at j − 1 (0 at j = 0)."""
+    j = torch.searchsorted(s, pos, right=True)
+    scan = torch.cat([torch.zeros(s.shape[0], 1), torch.cumsum(d, dim=1)], dim=1)
+    return j.to(torch.float32), torch.gather(scan, 1, j)
+
+
+def _x1_formula(s_win, d_win, sum_only, transpose):
+    n_super, sg, w = s_win.shape
+    pos = torch.arange(n_super * sg * SUB, dtype=torch.float32).view(-1, SUB)
+    counts, sums = _search_scan(s_win.reshape(-1, w), d_win.reshape(-1, w), pos)
+    out = (counts if sum_only else sums).view(n_super, sg, SUB)
+    return out if transpose else out.transpose(1, 2).contiguous()
+
+
+def _x2_windows(starts_f, diffs, a0):
+    rows = a0.long()[:, None] + torch.arange(Q)
+    return starts_f[rows].reshape(a0.shape[0], -1), diffs[rows].reshape(a0.shape[0], -1)
+
+
+def _x2_formula(starts_f, diffs, base, a0):
+    s, d = _x2_windows(starts_f, diffs, a0)
+    pos = torch.arange(a0.shape[0] * SUB, dtype=torch.float32).view(-1, SUB)
+    _, sums = _search_scan(s, d, pos)
+    return (sums + base[a0.long()]).view(-1, 1)
+
+
+def _jax_dma_kernel(starts_f, diffs, base, a0):
+    """``_dma_kernel``'s pallas_call as ``dma_resample_values`` builds it,
+    on the given fine-chunk arrays (exp_resample_dma.py:105-127)."""
+    n_rows = starts_f.shape[0]
+    num_super = a0.shape[0] // jrd.SG
+    pad = np.zeros((n_rows, jrd.ROW_W - 2 * SUB - 1), np.float32)
+    mega = np.concatenate([starts_f.numpy(), diffs.numpy(), base.numpy(), pad], axis=1)
+    with pltpu.force_tpu_interpret_mode():
+        out = pl.pallas_call(
+            jrd._dma_kernel,
+            grid_spec=pltpu.PrefetchScalarGridSpec(
+                num_scalar_prefetch=1,
+                grid=(num_super,),
+                in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+                out_specs=pl.BlockSpec((1, jrd.SG, SUB), lambda s, a0ref: (s, 0, 0),
+                                       memory_space=pltpu.VMEM),
+                scratch_shapes=[pltpu.VMEM((jrd.ROWS, jrd.ROW_W), jnp.float32),
+                                pltpu.SemaphoreType.DMA(())],
+            ),
+            out_shape=jax.ShapeDtypeStruct((num_super, jrd.SG, SUB), jnp.float32),
+        )(jnp.asarray(a0.numpy()), jnp.asarray(mega))
+    return np.asarray(out).reshape(-1, 1)
+
+
+def _x2_chunks(case, n=X2_N):
+    starts, p = _inputs(n, case)
+    a0, _ = trd.rank_a0(starts, n, n // SUB)
+    return fine_chunks(starts, p, n // SUB, ROWS), a0
+
+
+def _in_budget(a0):
+    """Each output's super-group has a span within ROWS (the TPU kernel's
+    DMA budget), as an (N, 1) mask."""
+    a0s = a0.view(-1, SG)
+    ok = a0s[:, -1] + Q - a0s[:, 0] <= ROWS
+    return ok[:, None].expand(-1, SG * SUB).reshape(-1, 1)
+
+
+def _shuffle_rows(rng, *arrays):
+    """``arrays`` with each last-axis row permuted, one permutation a row."""
+    shape = (-1, arrays[0].shape[-1])
+    perm = torch.from_numpy(np.argsort(rng.random(arrays[0].reshape(shape).shape), axis=1))
+    return tuple(torch.gather(a.reshape(shape), 1, perm).reshape(a.shape) for a in arrays)
+
+
+@pytest.mark.parametrize("case", PREMISE_CASES)
+@pytest.mark.parametrize("variant", range(len(tkv.VARIANTS)))
+def test_x1_windows_are_sorted(variant, case):
+    """Every window ``exp_kernel_var.windows`` builds is sorted, the
+    sentinel rows past N included."""
+    _, q, sg, _, _ = tkv.VARIANTS[variant]
+    starts, p = _inputs(PREMISE_N, case)
+    s_win, _ = tkv.windows(starts, p, q, sg)
+    if case != "point mass":  # whose windows all sit at its one chunk
+        assert float(s_win.max()) == PREMISE_N + 256  # the last windows reach the sentinel rows
+    assert bool(_sorted_rows(s_win).all())
+
+
+@pytest.mark.parametrize("case", X2_CASES)
+def test_x2_windows_are_sorted(case):
+    """Every X2 window, rows a0[b] … a0[b] + Q − 1 of ``fine_chunks``, is
+    sorted, also where the wrapper refuses the weights (σ = 3, a desert)."""
+    (starts_f, diffs, _), a0 = _x2_chunks(case)
+    s, _ = _x2_windows(starts_f, diffs, a0)
+    assert bool(_sorted_rows(s).all())
+
+
+@pytest.mark.parametrize("case", PREMISE_CASES)
+@pytest.mark.parametrize("variant", range(len(tkv.VARIANTS)))
+def test_x1_search_scan_equals_kern_v0(variant, case):
+    _, q, sg, transpose, sum_only = tkv.VARIANTS[variant]
+    starts, p = _inputs(PREMISE_N, case)
+    s_win, d_win = tkv.windows(starts, p, q, sg)
+    got = _x1_formula(s_win, d_win, sum_only, transpose).numpy()
+    want = _jax_kern_v0(s_win.numpy(), d_win.numpy(), sg, transpose, sum_only)
+    if sum_only:  # counts are exact
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("case", X2_CASES)
+def test_x2_search_scan_equals_dma_kernel(case):
+    """Within the span budget the formula equals the TPU kernel; everywhere
+    it equals the plain version (the TPU kernel cannot stage an over-budget
+    span)."""
+    chunks, a0 = _x2_chunks(case)
+    got = _x2_formula(*chunks, a0)
+    np.testing.assert_allclose(got.numpy(), span_compare_sum_reference(*chunks, a0).numpy(),
+                               rtol=0, atol=TOL)
+    ok = _in_budget(a0)
+    assert bool(ok.any()) and (case != "desert" or not bool(ok.all()))
+    # Over-budget super-groups get their first chunk's window, which the TPU
+    # kernel can stage (an interpreted read past its scratch raises); only
+    # the others are compared.
+    a0s = a0.view(-1, SG)
+    a0_jax = torch.where(ok.view(-1, SG, SUB)[:, :, 0], a0s, a0s[:, :1]).reshape(-1)
+    want = _jax_dma_kernel(*chunks, a0_jax)
+    np.testing.assert_allclose(got.numpy()[ok.numpy()], want[ok.numpy()], rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("transpose,sum_only", [(True, False), (True, True), (False, False)])
+def test_x1_shuffled_windows_need_the_walk(transpose, sum_only):
+    """With each window's entries shuffled the search-and-scan formula is
+    wrong, while the plain version (a walk) still equals the TPU kernel:
+    why the CUDA kernel walks a window that fails its sortedness check."""
+    starts, p = _inputs(PREMISE_N, "1.0")
+    s_win, d_win = _shuffle_rows(np.random.default_rng(7), *tkv.windows(starts, p, 4, 64))
+    assert not bool(_sorted_rows(s_win).any())
+    plain = window_compare_sum_reference(s_win, d_win, sum_only=sum_only, transpose=transpose)
+    want = _jax_kern_v0(s_win.numpy(), d_win.numpy(), 64, transpose, sum_only)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=TOL)
+    formula = _x1_formula(s_win, d_win, sum_only, transpose)
+    assert float((formula - plain).abs().max()) > 1.0
+
+
+def test_x1_walk_of_a_shuffled_window_needs_compensation():
+    """The kernels' walk in their order (a lane's 4 terms of each vector
+    summed, then added into the sum), against the exact sum in f64: in a
+    shuffled window the partial sums do not telescope, so a plain f32 sum
+    drifts past TOL, while Kahan's compensation, as the kernels add it,
+    stays well inside."""
+    starts, p = _inputs(PREMISE_N, "1.0")
+    s_win, d_win = _shuffle_rows(np.random.default_rng(7), *tkv.windows(starts, p, 4, 64))
+    s, d = s_win.reshape(-1, 512), d_win.reshape(-1, 512)
+    pos = torch.arange(s.shape[0] * SUB, dtype=torch.float32).view(-1, SUB)
+    exact = torch.zeros(pos.shape, dtype=torch.float64)
+    plain, total, comp = (torch.zeros(pos.shape) for _ in range(3))
+    for x0 in range(0, s.shape[1], 4):
+        group = torch.zeros(pos.shape)
+        for x in range(x0, x0 + 4):
+            term = torch.where(s[:, x:x + 1] <= pos, d[:, x:x + 1], 0.0)
+            exact += term.double()
+            plain += term
+            group += term
+        y = group - comp
+        new = total + y
+        comp = (new - total) - y
+        total = new
+    plain_err = float((plain.double() - exact).abs().max())
+    kahan_err = float((total.double() - exact).abs().max())
+    assert plain_err > TOL, f"plain f32 walk drifts {plain_err:.3e}"
+    assert kahan_err < TOL / 2, f"compensated walk drifts {kahan_err:.3e}"
+
+
+def test_x2_shuffled_rows_need_the_walk():
+    chunks, a0 = _x2_chunks("1.0", n=SG * SUB * 2)
+    shuffled = (*_shuffle_rows(np.random.default_rng(8), *chunks[:2]), chunks[2])
+    plain = span_compare_sum_reference(*shuffled, a0)
+    np.testing.assert_allclose(plain.numpy(), _jax_dma_kernel(*shuffled, a0), rtol=0, atol=TOL)
+    np.testing.assert_allclose(plain.numpy(), span_compare_sum_reference(*chunks, a0).numpy(),
+                               rtol=0, atol=TOL)  # a row's order does not change its sum
+    assert float((_x2_formula(*shuffled, a0) - plain).abs().max()) > 1.0
+
+
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """A library's build key changes when a shared header's bytes change
+    (so an edit of the header rebuilds every source that includes it) and
+    stays the same when nothing does."""
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    key = _nvcc.build_key("a.cu")
+    assert _nvcc.build_key("a.cu") == key
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    assert _nvcc.build_key("a.cu") != key
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    assert _nvcc.build_key("a.cu") == key
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert _nvcc.build_key("a.cu") != key
 
 
 # --- X3 ---------------------------------------------------------------------
