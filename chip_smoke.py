@@ -11,9 +11,10 @@ block; B1 and B2 also at the exact path's N = 2^25, B2 there on the exact
 integer starts; B1's row and its counter also after CUDA-graph replays; X1
 and X2 within 1e-5: they telescope f32 differences in another order; X2
 also against B2; X1 and X2 both on their sorted windows, where they search,
-and on shuffled ones, where they walk; X1 also at W = 128 and 6144 and on a
-NaN start, X2 also launched past its span budget, where exactly the
-over-budget super-groups get NaN). Then:
+and on shuffled ones, where they walk; X1 kernel and plain each held against
+the f64 sums of its windows, also at W = 128 and 6144 and on a NaN start, X2
+also launched past its span budget, where exactly the over-budget
+super-groups get NaN). Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
@@ -28,9 +29,33 @@ over-budget super-groups get NaN). Then:
   LEDH-200 and EDH-10000 on the sensor network, d = 64, T = 50, 100 trials
   batched, each held to the JAX package's MSE (KF and UKF within 1e-3
   relative, the flows within 5 %), B2 counted on the flows' resample steps
-  (once a step for all triggered trials); B2 also held bit-equal to its
-  plain version at the flows' shapes, (2e4, 64) and (1e6, 64) with
-  trial-offset starts and a point-mass trial;
+  (once a step for all triggered trials);
+- the skew-t path (``benchmarks.skewt``): EKF, UKF, EDH-200, EDH-10000 and
+  LEDH-200 on the d = 144 skew-t sensor network with Poisson counts, T = 10,
+  100 trials batched, on the JAX package's committed data: EKF and UKF
+  within 1e-3 of its MSE, the flows within 5 %, post-resample ESS within its
+  rounding of N, finite histories, B2 once a step with a resample, LEDH-200's
+  peak memory;
+- the MAT path (``benchmarks.mat``): EKF, UKF, and EDH and LEDH over 16
+  seeds of 500 particles on the committed acoustic-tracking data: the
+  Kalman OMATs within 1e-3 of the JAX package's (or twice its own one-ulp
+  spread, where wider), each flow's median OMAT inside the JAX package's
+  quartiles over 16 keys and below the Kalman rows where the JAX package's
+  is, B2 once a step with a resample for EDH and never for LEDH; EDH again
+  on 16 more seeds, and each flow's OMATs against the JAX package's 16 by a
+  rank test;
+- the KPF path (``benchmarks.kpf``): the kernel PF on Lorenz-96 at nx = 1000,
+  Np = 20, three analyses against the JAX package's committed posteriors
+  (the same pseudo-steps as a user runs them; with the factor's jitter
+  pinned at the JAX package's rung, the same pseudo-steps and the stated
+  tolerance; the localized analysis beating the forecast);
+- B2 held bit-equal to its plain version at the flows' shapes, (2e4, 64),
+  (1e6, 64), (2e4, 144), (1e6, 144) and (8000, 16), with trial-offset
+  starts and a point-mass trial;
+- the port's skew-t, MAT and Lorenz-96 simulators on the card (their draws
+  take the card's generator), held to the JAX package's data by moments;
+- determinism: two FusedSIRFilter runs and two ParticleFilter runs (with
+  the degeneracy panel) from one seed at N = 2^20, T = 200, bit-equal;
 - the profiling path: the small-N step decomposition
   (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
   variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
@@ -38,9 +63,9 @@ over-budget super-groups get NaN). Then:
 - each kernel timed against its plain version, its bound and, where one
   PyTorch call computes the same function, that call; B1 also with
   injected normals and over its programs per SM, B2 also at a point mass
-  and at the flows' d = 64 shapes, X1 and X2 on sorted windows beside the
-  same windows shuffled, X3 against ``torch.add`` in alternating pairs; the
-  exact run ends at 2^25 beside the f32 ones at 2^24.
+  and at the flows' shapes (d = 64, 144 and 16), X1 and X2 on sorted
+  windows beside the same windows shuffled, X3 against ``torch.add`` in
+  alternating pairs; the exact run ends at 2^25 beside the f32 ones at 2^24.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -62,7 +87,10 @@ import torch
 from particle_filters_tpu_torch.benchmarks import (
     exp_kernel_var,
     exp_resample_dma,
+    kpf,
+    mat,
     profile_small_n,
+    skewt,
     snlg,
 )
 from particle_filters_tpu_torch.models import ParticleFilter
@@ -97,10 +125,20 @@ PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two order
 SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
 B2_RAGGED_N = 3000  # B2's checks again where the last block is ragged
 EXACT_N, EXACT_T = 1 << 25, 50  # the exact path: past the f32 run ends' 2^24
-B2_TRIAL_SHAPES = ((100, 200), (100, 10000))  # the flows' resample: trials x N at d = 64
-SNLG_D = 64
+# The flows' resample, trials x N x d: SNLG d = 64, skew-t d = 144 (EDH-200
+# and LEDH-200, EDH-10000), MAT's EDH d = 16 over its 16 seeds of 500.
+B2_TRIAL_SHAPES = ((100, 200, 64), (100, 10000, 64), (100, 200, 144), (100, 10000, 144),
+                   (16, 500, 16))
 SNLG_MSE_RTOL = {"kf": 1e-3, "kf_sz1": 1e-3, "ukf": 1e-3,
                  "edh200": 0.05, "ledh200": 0.05, "edh10000": 0.05}
+# Skew-t: the EKF and UKF within 1e-3 of the JAX package's MSE on the same
+# data; the flows within 5 % of its CPU MSE (EDH-200's own spread over 8 flow
+# keys is 2.4 %, so 5 % stands).
+SKEWT_MSE_RTOL = {"ekf": 1e-3, "ukf": 1e-3, "edh200": 0.05, "edh10000": 0.05, "ledh200": 0.05}
+# MAT's flows: the port's OMATs against the JAX package's 16 by a two-sided
+# rank test; a p under this flags a shift of the port's flow, not chance.
+MAT_RANK_P = 1e-3
+DET_SEED = 11  # the determinism check's generator seed
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -312,14 +350,25 @@ def _sorted_rows(a):
     return (a[..., 1:] >= a[..., :-1]).all(-1)
 
 
-def _check_x1(label, s_win, d_win, transpose, sum_only) -> float:
+def _check_x1(label, s_win, d_win, transpose, sum_only):
+    """X1 and its plain version each held against the f64 sums of the same
+    windows (the plain version run on f64 copies), within PROBE_TOL, so the
+    bar measures the kernel and not the plain version's own f32 rounding;
+    counts equal plain exactly. Returns (|kernel - plain|, |kernel - f64|,
+    |plain - f64|), maxima."""
     out = x1.window_compare_sum(s_win, d_win, sum_only=sum_only, transpose=transpose)
     ref = x1.window_compare_sum_reference(s_win, d_win, sum_only=sum_only, transpose=transpose)
+    exact = x1.window_compare_sum_reference(s_win.double(), d_win.double(), sum_only=sum_only,
+                                            transpose=transpose)
     err = (out - ref).abs().max().item()
+    err_k = (out.double() - exact).abs().max().item()
+    err_p = (ref.double() - exact).abs().max().item()
+    del exact
     if sum_only:
         _check(torch.equal(out, ref), f"X1 {label}: counts == plain")
-    _check(err <= PROBE_TOL, f"X1 {label}: max |kernel - plain| {err} <= {PROBE_TOL}")
-    return err
+    _check(err_k <= PROBE_TOL, f"X1 {label}: max |kernel - f64| {err_k} <= {PROBE_TOL}")
+    _check(err_p <= PROBE_TOL, f"X1 {label}: max |plain - f64| {err_p} <= {PROBE_TOL}")
+    return err, err_k, err_p
 
 
 def check_x1(gen, n, device) -> float:
@@ -328,7 +377,7 @@ def check_x1(gen, n, device) -> float:
     W = 128 (N = ``n``) and W = 6144 (N ≤ 2^16: the plain version holds an
     (N, W) mask), each on its sorted windows (the search) and with every
     window shuffled (the walk); and a window holding a NaN start. Counts
-    equal, sums within PROBE_TOL."""
+    equal, kernel and plain sums each within PROBE_TOL of the f64 sums."""
     cases = [(*variant, n) for variant in exp_kernel_var.VARIANTS]
     for q, n_q in ((1, n), (48, min(n, 1 << 16))):
         cases += [(f"{label[:2]} at W={q * x1.SUB}", q, sg, transpose, sum_only, n_q)
@@ -341,15 +390,20 @@ def check_x1(gen, n, device) -> float:
         unsorted = int((~_sorted_rows(shuffled[0])).sum())
         errs = [_check_x1(f"{label}, {kind}", s, d, transpose, sum_only)
                 for kind, (s, d) in (("sorted", (s_win, d_win)), ("shuffled", shuffled))]
-        max_err = max(max_err, *errs)
-        print(f"X1 {label}: max |kernel - plain| = {errs[0]:.3e} sorted, {errs[1]:.3e} with "
-              f"each window shuffled ({unsorted} of {s_win.shape[0] * sg} unsorted) (N={n_case})")
+        max_err = max(max_err, errs[0][0], errs[1][0])
+        print(f"X1 {label}: sorted: |kernel - plain| {errs[0][0]:.3e}, |kernel - f64| "
+              f"{errs[0][1]:.3e}, |plain - f64| {errs[0][2]:.3e}; each window shuffled "
+              f"({unsorted} of {s_win.shape[0] * sg} unsorted): |kernel - plain| "
+              f"{errs[1][0]:.3e}, |kernel - f64| {errs[1][1]:.3e}, |plain - f64| "
+              f"{errs[1][2]:.3e} (N={n_case}; bar {PROBE_TOL} on both f64 columns)")
     s_win, d_win = exp_kernel_var.make_inputs(4, 64, n=n, device=device)
     s_win[0, 1, 5] = float("nan")  # one window fails the sortedness vote
     for transpose, sum_only in ((True, False), (True, True)):
         label = f"a NaN start, sum_only={sum_only}"
-        max_err = max(max_err, _check_x1(label, s_win, d_win, transpose, sum_only))
-        print(f"X1 {label}: equal to plain (N={n})")
+        err, err_k, err_p = _check_x1(label, s_win, d_win, transpose, sum_only)
+        max_err = max(max_err, err)
+        print(f"X1 {label}: |kernel - plain| {err:.3e}, |kernel - f64| {err_k:.3e}, "
+              f"|plain - f64| {err_p:.3e} (N={n})")
     return max_err
 
 
@@ -595,6 +649,180 @@ def run_snlg_path(device, card):
     return {"B2": launches}
 
 
+# --- the skew-t, MAT and KPF paths --------------------------------------------
+def _flow_launches(label, r):
+    """B2 launched once a step with a resample, on a path that resampled."""
+    _check(r["b2_launches"] == r["resample_steps"] > 0,
+           f"{label}: B2 launched {r['b2_launches']} times, once a step with a resample "
+           f"({r['resample_steps']})")
+
+
+def run_skewt_path(device, card):
+    """The skew-t column at full width (d = 144, T = 10, 100 trials), checked
+    against the JAX package on the same data; B2's count is set to 0 just
+    before each flow's timed run and read just after (``snlg.run_flow``)."""
+    res = skewt.run_column(device, profile=("edh10000", "ledh200"))
+    skewt.print_column(res, card)
+    for tag, r in res.items():
+        want, rtol = skewt.JAX_MSE[tag], SKEWT_MSE_RTOL[tag]
+        _check(abs(r["mse"] - want) <= rtol * want,
+               f"skew-t {tag}: MSE {r['mse']} within {rtol} of the JAX package's {want}")
+    for tag, _, n in skewt.FLOWS:
+        r = res[tag]
+        _check(r["finite"], f"skew-t {tag}: finite history")
+        tol = skewt.ess_tol(tag, n)
+        _check(abs(r["ess"] - n) <= tol,
+               f"skew-t {tag}: post-resample ESS {r['ess']} within {tol} of N = {n}")
+        _flow_launches(f"skew-t {tag}", r)
+    launches = sum(res[tag]["b2_launches"] for tag, _, _ in skewt.FLOWS)
+    print(f"skew-t path: B2 launched {launches} times in the flows' timed runs; LEDH-200 "
+          f"peak {res['ledh200']['peak_mib']:.0f} MiB allocated (all 100 trials in one "
+          f"run_trials call)  [{card}]")
+    return {"B2": launches}
+
+
+def run_mat_path(device, card):
+    """The MAT column at full width (4 targets, T = 40, N = 500, 16 seeds a
+    flow), checked against the JAX package on the same data. B2's count is
+    set to 0 just before each flow's timed run and read just after."""
+    res = mat.run_column(device)
+    mat.print_column(res, card)
+    for tag in ("ekf", "ukf"):
+        want, rtol = mat.JAX_OMAT[tag], mat.kalman_rtol(tag)
+        _check(abs(res[tag]["omat"] - want) <= rtol * want,
+               f"MAT {tag}: OMAT {res[tag]['omat']} within {rtol} of the JAX package's {want}")
+    for tag in mat.FLOWS:
+        r, (q1, jmed, q3) = res[tag], mat.JAX_FLOW_QUARTILES[tag]
+        _check(r["finite"], f"MAT {tag}: finite history")
+        _check(q1 <= r["median"] <= q3,
+               f"MAT {tag}: median OMAT {r['median']} inside the JAX package's quartiles "
+               f"[{q1}, {q3}]")
+        for kf in ("ekf", "ukf"):
+            if jmed < mat.JAX_OMAT[kf]:  # the table's finding, where the JAX package shows it
+                _check(r["median"] < res[kf]["omat"],
+                       f"MAT {tag}: median OMAT {r['median']} below the {kf}'s {res[kf]['omat']}")
+            else:
+                print(f"MAT {tag} vs {kf}: not held; the JAX package's own median "
+                      f"{jmed:.4f} is not below its {kf} OMAT {mat.JAX_OMAT[kf]:.4f}")
+    _flow_launches("MAT edh", res["edh"])
+    _check(res["ledh"]["b2_launches"] == res["ledh"]["resampled"] == 0,
+           "MAT ledh: never resamples, B2 never launched")
+    launches = sum(res[tag]["b2_launches"] for tag in mat.FLOWS)
+    print(f"MAT path: B2 launched {launches} times  [{card}]")
+    check_mat_flow_ranks(res, device)
+    return {"B2": launches}
+
+
+def check_mat_flow_ranks(res, device):
+    """A second witness of the flows' OMATs besides the quartile gate: EDH
+    on a second set of 16 seeds, and each flow's OMATs against the JAX
+    package's 16 by a two-sided rank test (all 32 of EDH's)."""
+    second, _, _ = mat.flow_omats("edh", torch.Generator(device=device).manual_seed(1),
+                                  mat.load_data(device))
+    print(f"MAT edh, second 16 seeds: median OMAT {statistics.median(second):.4f}, quartiles "
+          f"{' - '.join(f'{q:.4f}' for q in statistics.quantiles(second, n=4)[::2])}")
+    for tag, omats in (("edh", res["edh"]["omats"] + second), ("ledh", res["ledh"]["omats"])):
+        print(f"MAT {tag} OMAT by seed: {[round(o, 6) for o in omats]}")
+        u, p = mat.rank_test(omats, mat.JAX_FLOW_OMATS[tag])
+        print(f"MAT {tag}: {len(omats)} OMATs against the JAX package's 16, rank test U {u}, "
+              f"two-sided p {p:.4f}")
+        _check(p >= MAT_RANK_P, f"MAT {tag}: rank test p {p} >= {MAT_RANK_P}")
+
+
+def run_kpf_path(device, card):
+    """The kernel PF on Lorenz-96 at nx = 1000, Np = 20 against the JAX
+    package's committed posteriors: the same pseudo-steps, s = 1 and a
+    finite posterior as a user runs it; with the factor's jitter pinned at
+    the JAX package's rung, the same pseudo-steps and a posterior within
+    ``kpf.tolerance``; the localized analysis beating the forecast."""
+    res = kpf.run_cases(device)
+    kpf.print_cases(res, card)
+    for name, r in res.items():
+        p = r["pinned"]
+        for tag, q in (("", r), (" pinned", p)):
+            _check(q["steps"] == r["jax_steps"],
+                   f"KPF {name}{tag}: {q['steps']} pseudo-steps, the JAX package's "
+                   f"{r['jax_steps']}")
+            _check(q["s"] == 1.0, f"KPF {name}{tag}: pseudo-time {q['s']} reached 1")
+        _check(bool(torch.isfinite(r["posterior"]).all()), f"KPF {name}: finite posterior")
+        kind, bound = kpf.tolerance(name)
+        got = p["rms"] if kind == "rms" else p["max_abs"]
+        _check(got <= bound, f"KPF {name} at the JAX package's jitter "
+               f"{kpf.JAX_RUNG[name]:g}: posterior {kind} {got} <= {bound}")
+    loc = res["localized"]
+    _check(loc["rmse_analysis"] < loc["rmse_forecast"],
+           f"KPF localized: analysis RMSE {loc['rmse_analysis']} below the forecast's "
+           f"{loc['rmse_forecast']}")
+
+
+def check_simulators(device, card):
+    """The port's skew-t, MAT and Lorenz-96 simulators on the card (their
+    gamma, Poisson and normal draws take the card's generator): the skew-t
+    column's config against the JAX package's committed data by its
+    moments, MAT's article start, walls and noiseless amplitudes, and
+    Lorenz-96 at nx = 1000 finite with its √2 ensemble perturbation."""
+    from particle_filters_tpu_torch.simulators import acoustic_tracking as at
+    from particle_filters_tpu_torch.simulators import lorenz96 as l96
+    from particle_filters_tpu_torch.simulators import sensor_network_skewt as sk
+
+    X, Z, _, _ = skewt.load_data(device)
+    r = sk.simulate_skewt_many(sk.SkewTGridConfig(d=skewt.D, alpha0=1.0, alpha1=1e-3, beta=8.0),
+                               sk.SkewTDynConfig(alpha=skewt.AL, nu=8.0, gamma_scale=0.1,
+                                                 seed=42),
+                               sk.SkewTMeasConfig(m1=skewt.M1, m2=skewt.M2),
+                               sk.SkewTSimConfig(T=skewt.T, n_trials=skewt.TRIALS),
+                               device=device)
+    var_ratio = (r.X.var() / X.var()).item()
+    z_ratio = (r.Z.float().mean() / Z.mean()).item()
+    _check(bool(torch.isfinite(r.X).all()) and r.Z.dtype == torch.int32
+           and int(r.Z.min()) >= 0, "skew-t simulator: finite X, int32 counts >= 0")
+    _check(0.85 <= var_ratio <= 1.15 and 0.85 <= z_ratio <= 1.15,
+           f"skew-t simulator: var(X) {var_ratio:.3f} and mean(Z) {z_ratio:.3f} of the JAX "
+           f"package's data, within 15 %")
+    torch.testing.assert_close(r.Lambda, torch.exp(torch.clamp(r.X, -10, 10) / 3.0))
+    ds = at.simulate_acoustic_dataset(at.MATScenarioConfig(n_steps=mat.T, seed=7),
+                                      at.MATDynamicsConfig(), device=device)
+    _check(torch.equal(ds.X[0], at.article_initial_states(4, device))
+           and bool(((ds.P >= 0) & (ds.P <= 40)).all()),
+           "MAT simulator: the article's start, every position inside the walls")
+    torch.testing.assert_close(ds.Z, at.acoustic_measurement_model(ds.P, ds.S, 10.0, 0.1))
+    lr = l96.simulate_lorenz96(nx=1000, Np=20, seed=42, device=device)
+    spread = (lr.ensemble_traj[:, 0] - lr.truth_traj[0]).std().item()
+    _check(bool(torch.isfinite(lr.ensemble_traj).all()) and abs(spread - 2**0.5) < 0.05,
+           f"Lorenz-96 simulator: finite, ensemble perturbation std {spread:.4f} ~ sqrt(2)")
+    print(f"simulators on the card: skew-t var(X) {var_ratio:.4f} and mean(Z) {z_ratio:.4f} "
+          f"of the JAX package's data; MAT inside the walls; Lorenz-96 nx=1000 perturbation "
+          f"std {spread:.4f}  [{card}]")
+
+
+def check_determinism(n, device):
+    """Two FusedSIRFilter runs and two ParticleFilter runs (the latter with
+    the degeneracy panel) from one seed, N = ``n``, T = 200: bit-equal
+    histories."""
+    sv = simulate_sv_1d(T, ALPHA, SIGMA, BETA, seed=42, device=device)
+    zs, var0 = sv.Y[:, None], SIGMA**2 / (1 - ALPHA**2)
+    model = SVModel(ALPHA, BETA)
+    makers = {
+        "FusedSIRFilter": (lambda: FusedSIRFilter(model, [[SIGMA**2]], Np=n, device=device), {}),
+        "ParticleFilter": (lambda: ParticleFilter(
+            lambda x, u: model.g(x), None, Q=[[SIGMA**2]], R=None, Np=n,
+            obs_loglik=model.obs_loglik, device=device), {"track_degeneracy": True}),
+    }
+    for label, (make, kw) in makers.items():
+        hists = []
+        for _ in range(2):
+            gen = torch.Generator(device=device).manual_seed(DET_SEED)
+            filt = make()
+            _, hist = filt.run(gen, filt.initialize(gen, [0.0], [[var0]]), zs, **kw)
+            hists.append(hist)
+        a, b = hists
+        _check(set(a) == set(b), f"determinism {label}: the same history keys")
+        for k in a:
+            _check(torch.equal(a[k], b[k]), f"determinism {label}: history[{k}] bit-equal")
+        print(f"determinism N={n} T={T} {label}: two runs from seed {DET_SEED} bit-equal in "
+              f"{sorted(a)} ({int(a['resampled'].sum())} resample steps)")
+
+
 # --- the profiling path ------------------------------------------------------
 def run_profiling_path(device, card):
     """The small-N decomposition, X1's variants and X2 against B2, with the
@@ -736,16 +964,16 @@ def time_b2_balance(gen, n, device, card) -> None:
 
 
 def time_b2_trials(gen, device, card):
-    """B2 at the flows' shapes, d = 64 with trial-offset starts: device time,
-    plain, ``repeat_interleave`` and the byte bound, in turns."""
+    """B2 at the flows' shapes with trial-offset starts: device time, plain,
+    ``repeat_interleave`` and the byte bound, in turns."""
     out = {}
-    for trials, n in B2_TRIAL_SHAPES:
+    for trials, n, d in B2_TRIAL_SHAPES:
         rows = trials * n
         sets = []
         for _ in range(4):
             starts = batched_starts(_trial_weights(gen, trials, n, device),
                                     torch.rand(trials, generator=gen, device=device))
-            p = torch.randn((rows, SNLG_D), generator=gen, device=device)
+            p = torch.randn((rows, d), generator=gen, device=device)
             counts = torch.diff(starts, append=starts.new_full((1,), rows)).long()
             sets.append((p, starts, counts))
         kern = _rotating(lambda p, s, c: b2.resample_by_starts(p, s), sets)
@@ -756,8 +984,8 @@ def time_b2_trials(gen, device, card):
         ms, plain_ms, lib_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
         p, starts, _ = sets[0]
         bound = _bound(_nbytes(p, starts, p), 2 * (2 * rows))
-        out[rows] = (ms, plain_ms, lib_ms, bound)
-        print(f"B2 at the flows' shape {trials} x {n} = {rows} rows, d={SNLG_D}: device "
+        out[(rows, d)] = (ms, plain_ms, lib_ms, bound)
+        print(f"B2 at the flows' shape {trials} x {n} = {rows} rows, d={d}: device "
               f"{ms:.6f} ms, plain {plain_ms:.6f} ms, repeat_interleave {lib_ms:.6f} ms; bound "
               f"{bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms:.3f} of it  [{card}]")
     return out
@@ -928,7 +1156,7 @@ def main() -> None:
 
     _build_all(gen)
     errs = {"B2": max([check_b2(gen, n, device) for n in (N, B2_RAGGED_N, EXACT_N)]
-                      + [check_b2_trials(gen, t, n, SNLG_D, device) for t, n in B2_TRIAL_SHAPES]),
+                      + [check_b2_trials(gen, t, n, d, device) for t, n, d in B2_TRIAL_SHAPES]),
             "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
             "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device)}
     check_exact(gen, device)
@@ -938,7 +1166,13 @@ def main() -> None:
     check_step_launches(N, device)
     exact_counts = run_exact_path(device, card)
     snlg_counts = run_snlg_path(device, card)
-    print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}")
+    skewt_counts = run_skewt_path(device, card)
+    mat_counts = run_mat_path(device, card)
+    run_kpf_path(device, card)
+    check_simulators(device, card)
+    print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}, "
+          f"skew-t {skewt_counts}, MAT {mat_counts}")
+    check_determinism(N, device)
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)
     time_b1_variants(gen, N, device, card)

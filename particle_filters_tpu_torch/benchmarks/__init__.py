@@ -10,8 +10,18 @@
   source cut after each phase;
 - ``snlg``: the SNLG d = 64 column (KF, UKF, EDH-200, LEDH-200, EDH-10000
   over 100 trials at once), the twin of ``bench_snlg`` in
-  ``benchmarks/run_benchmarks.py``.
+  ``benchmarks/run_benchmarks.py``;
+- ``skewt``: the skew-t d = 144 column (EKF, UKF, EDH-200, EDH-10000,
+  LEDH-200 over 100 trials), the twin of ``bench_skewt``;
+- ``mat``: the multi-target acoustic tracking column (EKF, UKF, and EDH and
+  LEDH over 16 seeds), the twin of ``bench_mat_flows``;
+- ``kpf``: the kernel particle filter on Lorenz-96 at nx = 1000, against
+  the JAX package's posteriors;
+- ``main_path_turns``: ``chip_smoke.py``'s main path on this tree and on
+  another checkout in turns, each run in its own process.
 
+``skewt``, ``mat`` and ``kpf`` read the JAX package's data from ``data/``.
 The first three time by the slope protocol of ``_slope``, ``b2_phases`` by
-CUDA-graph replay, ``snlg`` by wall clock to a sync. Importing runs nothing.
+CUDA-graph replay, the columns by wall clock to a sync. Importing runs
+nothing.
 """

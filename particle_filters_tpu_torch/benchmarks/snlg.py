@@ -221,16 +221,20 @@ def print_column(res, card: str, trials: int = TRIALS, steps: int = T) -> None:
             print(f"    {ms:9.3f} ms  x{count:<6d} {key[:90]}")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("snlg needs a CUDA device.", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print_column(run_column("cuda", profile=("edh10000", "ledh200")), card)
+    print_column(run_column("cuda", profile=("edh10000", "ledh200")), card_line())
     return 0
 
 

@@ -52,14 +52,16 @@ def chol_with_jitter(
     max_tries: int = 6,
     initial: float = 1e-9,
     factor: float = 10.0,
-) -> torch.Tensor:
+    return_jitter: bool = False,
+):
     """Cholesky factor of an SPD matrix with a jitter ladder.
 
     The rungs ``jitter`` then ``jitter + initial·factor^k`` are factorized in
     one batched ``cholesky_ex`` call; the first rung on which the WHOLE input
     factorizes wins. If every rung fails the (non-finite) base attempt is
     returned, as in the JAX package. Under ``torch.func.vmap`` the rung is
-    chosen per batch element, as under ``jax.vmap``.
+    chosen per batch element, as under ``jax.vmap``. With ``return_jitter``
+    also returns the jitter of the rung taken, a 0-d tensor.
     """
     a = symmetrize(a)
     n = a.shape[-1]
@@ -71,7 +73,7 @@ def chol_with_jitter(
     Ls = chol_nojitter(a.unsqueeze(0) + eps * eye)  # (R, ..., n, n)
     ok = torch.isfinite(Ls).flatten(1).all(dim=1)
     idx = torch.argmax(ok.to(torch.int32))  # first finite rung; 0 if none
-    return Ls[idx]
+    return (Ls[idx], eps.flatten()[idx]) if return_jitter else Ls[idx]
 
 
 # --- triangular solves -------------------------------------------------------

@@ -11,7 +11,9 @@ arrays, into this package's, so both packages can start from one state.
   picks it by the class's name).
 - ``Q`` becomes the f32 ``(Q, Lq)`` pair both filters build, with
   ``Lq = cholesky(Q + 1e-10·I)`` taken in numpy as the JAX fused filter does.
-- ``LGSSMParams`` and an ``SNLGDataset`` become this package's.
+- ``LGSSMParams``, an ``SNLGDataset``, a ``SkewTTrialResult``, a
+  ``MATDataset`` and a ``KPFState`` become this package's (counts stay
+  int32, as the JAX simulators return them).
 
 :func:`to_numpy` goes back: a state's fields as numpy arrays.
 """
@@ -26,11 +28,14 @@ import torch
 from particle_filters_tpu_torch.core.structs import PFState, state_fields
 from particle_filters_tpu_torch.models.edh_particle_filter import FlowPFState
 from particle_filters_tpu_torch.models.extended_kalman_filter import EKFState
+from particle_filters_tpu_torch.models.kernel_particle_filter import KPFState
 from particle_filters_tpu_torch.models.trackers import TrackerState
 from particle_filters_tpu_torch.models.unscented_kalman_filter import UKFState
 from particle_filters_tpu_torch.ops.fused_pf import noise_factor
+from particle_filters_tpu_torch.simulators.acoustic_tracking import MATDataset
 from particle_filters_tpu_torch.simulators.lgssm import LGSSMParams
 from particle_filters_tpu_torch.simulators.sensor_network_lg import SNLGConfig, SNLGDataset
+from particle_filters_tpu_torch.simulators.sensor_network_skewt import SkewTTrialResult
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -104,3 +109,27 @@ def snlg_dataset_from_jax(ds, *, device="cuda") -> SNLGDataset:
         coords=_t(ds.coords, device, np.float32), Sigma=_t(ds.Sigma, device, np.float32),
         config=cfg,
     )
+
+
+def skewt_result_from_jax(res, *, device="cuda") -> SkewTTrialResult:
+    """A JAX ``SkewTTrialResult`` as this package's: f32 arrays, Z int32,
+    Λ where it was kept, the same meta."""
+    lam = getattr(res, "Lambda", None)
+    return SkewTTrialResult(
+        X=_t(res.X, device, np.float32), Z=_t(res.Z, device, np.int32),
+        Lambda=None if lam is None else _t(lam, device, np.float32),
+        Sigma=_t(res.Sigma, device, np.float32), L=_t(res.L, device, np.float32),
+        R=_t(res.R, device, np.float32), gamma=_t(res.gamma, device, np.float32),
+        meta=res.meta,
+    )
+
+
+def mat_dataset_from_jax(ds, *, device="cuda") -> MATDataset:
+    """A JAX ``MATDataset`` as this package's, f32 on ``device``."""
+    return _fields_from(MATDataset, ds, device)
+
+
+def kpf_state_from_jax(state, *, device="cuda") -> KPFState:
+    """A JAX ``KPFState`` as this package's: f32 particles, weights, s and
+    ds_history, int32 steps."""
+    return _fields_from(KPFState, state, device)

@@ -12,6 +12,14 @@ from particle_filters_tpu_torch.models.extended_kalman_filter import (
     numerical_jacobian_h,
 )
 from particle_filters_tpu_torch.models.kalman_filter import KFResults, kalman_filter_general
+from particle_filters_tpu_torch.models.kernel_particle_filter import (
+    KernelParticleFilter,
+    KPFConfig,
+    KPFState,
+    Model,
+    build_localization_matrix,
+    gaspari_cohn,
+)
 from particle_filters_tpu_torch.models.ledh_particle_filter import LEDHConfig, LEDHFlowPF
 from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
 from particle_filters_tpu_torch.models.trackers import (
@@ -35,14 +43,20 @@ __all__ = [
     "FlowPFState",
     "GaussianTracker",
     "KFResults",
+    "KPFConfig",
+    "KPFState",
+    "KernelParticleFilter",
     "LEDHConfig",
     "LEDHFlowPF",
+    "Model",
     "PFState",
     "ParticleFilter",
     "TrackerState",
     "UKFState",
     "UKFTracker",
     "UnscentedKalmanFilter",
+    "build_localization_matrix",
+    "gaspari_cohn",
     "kalman_filter_general",
     "make_ekf_state",
     "make_ukf_state",

@@ -7,10 +7,12 @@ under ``torch.func.vmap``; weights live in the log domain; the ESS trigger
 step, where the JAX package uses ``lax.cond``); systematic resampling of
 the values goes through kernel B2 on a CUDA tensor
 (``resampling.hard.systematic_resample_values``) and through its plain
-version on a CPU tensor. ``run`` is a Python loop over the steps.
+version on a CPU tensor. ``run`` is a Python loop over the steps; with
+``track_degeneracy`` it also records the degeneracy panel of
+``utils.diagnostics``.
 
-Not ported yet: ``run_chunked`` (checkpointing) and ``track_degeneracy``
-(the diagnostics panel), and the sharded ``axis_name`` arguments.
+Not ported yet: ``run_chunked`` (checkpointing) and the sharded
+``axis_name`` arguments.
 """
 
 from __future__ import annotations
@@ -31,6 +33,14 @@ from particle_filters_tpu_torch.resampling.hard import (
     resample_indices,
     systematic_resample_values,
 )
+from particle_filters_tpu_torch.utils.diagnostics import (
+    max_weight,
+    unique_fraction,
+    weight_entropy,
+    weight_gini,
+)
+
+_PANEL = ("entropy", "gini", "max_weight", "unique_frac")
 
 
 class ParticleFilter:
@@ -126,17 +136,21 @@ class ParticleFilter:
         return torch.func.vmap(lambda x: self._obs_loglik(x, z))(particles)
 
     def _resample_values(self, generator, p, lw):
+        """The resampled particles and their ancestry: the child-run starts
+        kernel B2 copied by (systematic) or the ancestor indices."""
         if self.resample_method == "systematic":
-            return systematic_resample_values(generator, p, logw=lw)
+            return systematic_resample_values(generator, p, logw=lw, return_starts=True)
         idx = resample_indices(self.resample_method, generator, logw=lw)
-        return p[idx.long()]
+        return p[idx.long()], idx
 
     def _maybe_resample(self, generator, particles, logw):
-        """ESS-triggered resample; the branch runs on the host."""
+        """ESS-triggered resample; the branch runs on the host. Also returns
+        the resample's ancestry (None on a step without one)."""
         ess = ess_from_logw(logw)
         trigger = bool(ess < self.resample_thresh * particles.shape[0])
+        ancestry = None
         if trigger:
-            particles = self._resample_values(generator, particles, logw)
+            particles, ancestry = self._resample_values(generator, particles, logw)
             if self.regularize_after_resample:
                 jitter = torch.randn(
                     particles.shape, generator=generator,
@@ -144,7 +158,7 @@ class ParticleFilter:
                 )
                 particles = particles + jitter @ (0.001 * self.Lq.T)
             logw = uniform_logw(particles.shape[0], logw.dtype, logw.device)
-        return particles, logw, ess, trigger
+        return particles, logw, ess, trigger, ancestry
 
     def update(self, generator, state: PFState, z, particles=None,
                return_diagnostics: bool = False):
@@ -157,20 +171,38 @@ class ParticleFilter:
             return new, diag
         return new
 
-    def _update(self, generator, state, z, particles=None):
+    def _update(self, generator, state, z, particles=None, track_degeneracy=False):
         z = as_f32(z, self.device)
         if particles is None:
             particles = state.particles
         # log_z: the incremental marginal likelihood log p(z_t | z_{1:t-1})
         # up to the constant the Gaussian path drops.
-        logw, log_z = log_normalize(state.log_weights + self._loglik(particles, z))
-        particles, logw, ess, trig = self._maybe_resample(generator, particles, logw)
+        logw_pre, log_z = log_normalize(state.log_weights + self._loglik(particles, z))
+        particles, logw, ess, trig, ancestry = self._maybe_resample(
+            generator, particles, logw_pre)
         mean, cov = weighted_mean_cov(particles, logw)
         new = PFState(
             particles=particles, log_weights=logw, mean=mean, cov=cov,
             t=state.t + 1,
         )
-        return new, {"ess": ess, "resampled": trig, "exchange_ok": True}, log_z
+        diag = {"ess": ess, "resampled": trig, "exchange_ok": True}
+        if track_degeneracy:
+            diag.update(self._degeneracy(logw_pre, ancestry))
+        return new, diag, log_z
+
+    def _degeneracy(self, logw_pre, ancestry):
+        """The panel of the pre-resample weights: normalized entropy, Gini,
+        max weight, and the fraction of ancestors that survive the resample
+        that ran (1.0 on a step without one), read from its ``ancestry``: an
+        ancestor survives where its child run is not empty."""
+        survive = torch.ones((), device=logw_pre.device)
+        if ancestry is not None and self.resample_method == "systematic":
+            ends = torch.cat([ancestry[1:], ancestry.new_full((1,), ancestry.shape[0])])
+            survive = torch.mean((ends > ancestry).to(torch.float32))
+        elif ancestry is not None:
+            survive = unique_fraction(ancestry)
+        return {"entropy": weight_entropy(logw_pre), "gini": weight_gini(logw_pre),
+                "max_weight": max_weight(logw_pre), "unique_frac": survive}
 
     def step(self, generator, state: PFState, z, u=None,
              return_diagnostics: bool = False):
@@ -187,31 +219,28 @@ class ParticleFilter:
 
         Returns ``(final_state, history)`` with stacked per-step mean (T, nx),
         cov (T, nx, nx), ess (T,), resampled (T,), log_evidence (T,) and
-        exchange_ok (T,).
+        exchange_ok (T,). With ``track_degeneracy`` the history also carries
+        (T,) ``entropy`` (normalized), ``gini`` and ``max_weight`` of the
+        pre-resample weights, and ``unique_frac``, the fraction of ancestors
+        that survive the step's resample (1.0 on steps without one). The
+        panel draws nothing from ``generator``: the rest of the run is the
+        same with it or without.
         """
-        if track_degeneracy:
-            raise NotImplementedError(
-                "track_degeneracy needs utils/diagnostics, not ported yet."
-            )
         zs = as_f32(zs, self.device)
         state = state0
-        hist = {k: [] for k in ("mean", "cov", "ess", "log_evidence")}
+        keys = ("mean", "cov", "ess", "log_evidence") + (_PANEL if track_degeneracy else ())
+        hist = {k: [] for k in keys}
         triggers = []
         for t in range(zs.shape[0]):
             u = None if us is None else us[t]
             particles = self.predict(generator, state, u)
-            state, diag, log_z = self._update(generator, state, zs[t], particles)
-            hist["mean"].append(state.mean)
-            hist["cov"].append(state.cov)
-            hist["ess"].append(diag["ess"])
-            hist["log_evidence"].append(log_z)
+            state, diag, log_z = self._update(generator, state, zs[t], particles,
+                                              track_degeneracy)
+            row = {"mean": state.mean, "cov": state.cov, "log_evidence": log_z, **diag}
+            for k in keys:
+                hist[k].append(row[k])
             triggers.append(diag["resampled"])
         resampled = torch.tensor(triggers, dtype=torch.bool, device=self.device)
-        return state, {
-            "mean": torch.stack(hist["mean"]),
-            "cov": torch.stack(hist["cov"]),
-            "ess": torch.stack(hist["ess"]),
-            "resampled": resampled,
-            "log_evidence": torch.stack(hist["log_evidence"]),
-            "exchange_ok": torch.ones_like(resampled),
-        }
+        out = {k: torch.stack(v) for k, v in hist.items()}
+        out.update(resampled=resampled, exchange_ok=torch.ones_like(resampled))
+        return state, out

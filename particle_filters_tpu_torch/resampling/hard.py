@@ -2,11 +2,13 @@
 residual (PyTorch port of ``particle_filters_tpu/resampling/hard.py``).
 
 One inverse-CDF convention, :func:`_child_run_ends`, defines systematic
-ancestry for the index, count and value paths alike. The cdf is a
-``torch.cumsum`` kept nondecreasing (:func:`_cdf`; the card's parallel scan
-can round a partial sum down): the JAX package's ``blocked_cumsum`` was a
-TPU workaround whose summation order differs, so run ends can differ by ±1
-at rare ceil boundaries; on a shared cdf and u they are integer-equal.
+ancestry for the index, count and value paths alike. The cdf is the blocked
+cumsum of ``core/block_cumsum.py`` kept nondecreasing (:func:`_cdf`): it
+gives the card the same bits on every run, where ``torch.cumsum`` of a CUDA
+float tensor does not. Its sums are not the JAX package's
+(``blocked_cumsum`` there adds in another order, in f32), so run ends can
+differ by ±1 at rare ceil boundaries; on a shared cdf and u they are
+integer-equal.
 
 Past max(N, M) = 2²⁴ the run ends come from the exact quantized-integer
 convention of ``resampling/exact.py``, bit-identical to the JAX package's.
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from particle_filters_tpu_torch.core.block_cumsum import blocked_cumsum
 from particle_filters_tpu_torch.core.weights import log_normalize
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
 from particle_filters_tpu_torch.resampling.exact import (
@@ -71,11 +74,10 @@ def _running_max(x: torch.Tensor) -> torch.Tensor:
 
 def _cdf(weights: torch.Tensor) -> torch.Tensor:
     """The nondecreasing cumulative sum of ``weights`` along the last axis.
-    On the card ``torch.cumsum`` is a parallel scan that can round a partial
-    sum below its predecessor where a weight is under one ulp of it; the
-    running maximum undoes that, and is the identity where the scan is
-    sequential."""
-    return _running_max(torch.cumsum(weights, dim=-1))
+    Each partial sum of the blocked scan rounds on its own, so one can land
+    below its predecessor where a weight is under one ulp of it; the running
+    maximum undoes that. Both are deterministic on the card."""
+    return _running_max(blocked_cumsum(weights))
 
 
 def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -156,17 +158,22 @@ def systematic_resample_values(
     *,
     w: Optional[torch.Tensor] = None,
     logw: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_starts: bool = False,
+):
     """Systematic resampling returning the resampled (N, d) particle VALUES:
     the one-cloud case of :func:`systematic_resample_values_batched`.
 
     The starts are torch ops; the values come from kernel B2
     (``ops/resample.py``) on a CUDA tensor and from its plain version on a
     CPU tensor. The values are copies, so they equal ``particles[idx]``.
+    With ``return_starts`` also returns the (N,) int32 child-run starts the
+    values were copied by.
     """
-    return systematic_resample_values_batched(
+    out, starts = systematic_resample_values_batched(
         generator, particles[None],
-        w=None if w is None else w[None], logw=None if logw is None else logw[None])[0]
+        w=None if w is None else w[None], logw=None if logw is None else logw[None],
+        return_starts=True)
+    return (out[0], starts) if return_starts else out[0]
 
 
 def systematic_resample_values_batched(
@@ -175,15 +182,18 @@ def systematic_resample_values_batched(
     *,
     w: Optional[torch.Tensor] = None,
     logw: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_starts: bool = False,
+):
     """Systematic resampling of B independent clouds (B, N, d) with weights
     (B, N), one u per cloud from ``generator``, in ONE launch of kernel B2
-    (:func:`batched_starts`)."""
+    (:func:`batched_starts`). With ``return_starts`` also returns those
+    (B·N,) starts."""
     weights = _weights_from(w, logw)
     b, n, d = particles.shape
     starts = batched_starts(weights, _uniform(generator, (b,), weights))
     out = resample_by_starts(particles.reshape(b * n, d).contiguous(), starts)
-    return out.view(b, n, d)
+    out = out.view(b, n, d)
+    return (out, starts) if return_starts else out
 
 
 def batched_starts(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -248,7 +258,7 @@ def residual_resample(
     det_idx = torch.searchsorted(cum_counts, slots, right=True).clamp_(0, n - 1)
 
     resid = torch.clamp(n * weights - counts, min=0.0)
-    resid_cdf = torch.cumsum(resid / torch.clamp(torch.sum(resid), min=1e-38), dim=0)
+    resid_cdf = blocked_cumsum(resid / torch.clamp(torch.sum(resid), min=1e-38))
     u = _uniform(generator, (n,), weights)
     multi_idx = torch.searchsorted(resid_cdf, u, right=True).clamp_(0, n - 1)
 

@@ -11,6 +11,7 @@ import torch
 from particle_filters_tpu.core import linalg as jlin
 from particle_filters_tpu.core import weights as jw
 from particle_filters_tpu.core.block_cumsum import blocked_cumsum
+from particle_filters_tpu_torch.core import block_cumsum as tbc
 from particle_filters_tpu_torch.core import linalg as tlin
 from particle_filters_tpu_torch.core import weights as tw
 
@@ -125,18 +126,36 @@ def test_symmetrize():
 
 @pytest.mark.parametrize("n", [100, 1 << 15])
 def test_cumsum_matches_blocked_cumsum(n):
-    """torch.cumsum stands in for blocked_cumsum: integers equal, floats to
-    f32 rounding of a sum of n positive terms (the trees differ)."""
+    """The port's blocked_cumsum (the resample cdf's scan) against the JAX
+    package's: integers equal, floats to f32 rounding of a sum of n positive
+    terms (the port sums in f64 and rounds once, the JAX package in f32 in
+    another order)."""
     rng = np.random.default_rng(n)
     ints = rng.integers(0, 5, n).astype(np.int32)
     np.testing.assert_array_equal(
-        torch.cumsum(torch.from_numpy(ints), 0, dtype=torch.int32).numpy(),
+        tbc.blocked_cumsum(torch.from_numpy(ints)).numpy(),
         np.asarray(blocked_cumsum(jnp.asarray(ints))),
     )
     w = rng.random(n).astype(np.float32)
     w /= w.sum()
     np.testing.assert_allclose(
-        torch.cumsum(torch.from_numpy(w), 0).numpy(),
+        tbc.blocked_cumsum(torch.from_numpy(w)).numpy(),
         np.asarray(blocked_cumsum(jnp.asarray(w))),
         rtol=0, atol=16 * np.finfo(np.float32).eps,
     )
+
+
+@pytest.mark.parametrize("shape", [(1,), (127,), (129,), (3, 1000), (2, 1 << 15)])
+def test_blocked_cumsum_along_the_last_axis(shape):
+    """Any length and leading axes, row by row: f64 to 1e-12 of numpy's
+    cumsum, f32 to one rounding of the exact sum, integers exact, and the
+    same bits on a second call."""
+    x = torch.rand(shape, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(tbc.blocked_cumsum(x).numpy(), np.cumsum(x.numpy(), -1),
+                               rtol=1e-12)
+    xi = torch.randint(0, 9, shape, dtype=torch.int32)
+    assert torch.equal(tbc.blocked_cumsum(xi), torch.cumsum(xi, -1, dtype=torch.int32))
+    xf = x.float()
+    exact = np.cumsum(xf.double().numpy(), -1)
+    np.testing.assert_allclose(tbc.blocked_cumsum(xf).numpy(), exact, rtol=2 ** -23, atol=0)
+    assert torch.equal(tbc.blocked_cumsum(xf), tbc.blocked_cumsum(xf.clone()))

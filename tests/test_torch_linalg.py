@@ -178,3 +178,20 @@ def test_log_density_solve_under_vmap_and_derivatives():
                           (torch.func.jacfwd(port, argnums=(0, 1)), torch.func.jacfwd(ref, argnums=(0, 1)))):
         for g_port, g_ref in zip(f_port(L, x), f_ref(L, x)):
             torch.testing.assert_close(g_port, g_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_chol_with_jitter_reports_its_rung():
+    """``return_jitter`` gives the jitter of the rung taken: 0 for an SPD
+    matrix, the first rung that factorizes a singular one (whose factor
+    reproduces the matrix plus that jitter), and the one rung asked for
+    with ``max_tries=0``."""
+    good = _spd((), 5, 4)
+    L, j = tlin.chol_with_jitter(_t(good), return_jitter=True)
+    assert float(j) == 0.0 and torch.equal(L, tlin.chol_with_jitter(_t(good)))
+    bad = np.ones((5, 5), np.float32)
+    L, j = tlin.chol_with_jitter(_t(bad), return_jitter=True)
+    assert float(j) > 0.0 and bool(torch.isfinite(L).all())
+    np.testing.assert_allclose((L @ L.T).numpy(), bad + float(j) * np.eye(5), atol=1e-5)
+    L, j = tlin.chol_with_jitter(_t(bad), jitter=1e-2, max_tries=0, return_jitter=True)
+    assert float(j) == pytest.approx(1e-2) and bool(torch.isfinite(L).all())
+
