@@ -51,9 +51,25 @@ super-groups get NaN). Then:
   tolerance; the localized analysis beating the forecast);
 - B2 held bit-equal to its plain version at the flows' shapes, (2e4, 64),
   (1e6, 64), (2e4, 144), (1e6, 144) and (8000, 16), with trial-offset
-  starts and a point-mass trial;
+  starts and a point-mass trial, and at the SPF's SIR PF, (1e4, 9);
 - the port's skew-t, MAT and Lorenz-96 simulators on the card (their draws
   take the card's generator), held to the JAX package's data by moments;
+- the SPF path (``benchmarks.spf``): the optimal beta* on the card against
+  the same solve on the CPU (example 1's at n_grid 1001, example 2's first
+  batched solve of its 20 runs), example 1 (20 runs of N = 50, 1000
+  lambda-steps, linear and optimal; 8 sets of 20 runs against the JAX
+  package's 8 by a two-sample test) and example 2's first 10 time steps
+  (the SPF of 20 runs batched, optimal and linear, and the SIR PF at
+  N = 10^4, which resamples 10^4 x 9 through B2), run by run against the
+  JAX package's on the same trajectories by a paired test, B2 counted;
+- the DPF path (``benchmarks.dpf``): dpf_linear and dpf_nonlinear (soft,
+  OT, RNN baseline; 8 seeds a row against the JAX package's 64 keys by a
+  two-sample test), 20 Adam steps of the trained RNN timed a step, and the
+  committed trained GRU's held-out NLL 10x below baseline mode's;
+- the OT path (``benchmarks.ot_large``): dense against blockwise Sinkhorn
+  at N = 4096, and blockwise at N = 4096, 16384 and 65536 with peak memory;
+- the run_chunked path: ParticleFilter on the SV model at N = 2^20 run in
+  pieces, interrupted and resumed from its checkpoint, bit-equal to run;
 - determinism: two FusedSIRFilter runs and two ParticleFilter runs (with
   the degeneracy panel) from one seed at N = 2^20, T = 200, bit-equal;
 - the profiling path: the small-N step decomposition
@@ -63,8 +79,8 @@ super-groups get NaN). Then:
 - each kernel timed against its plain version, its bound and, where one
   PyTorch call computes the same function, that call; B1 also with
   injected normals and over its programs per SM, B2 also at a point mass
-  and at the flows' shapes (d = 64, 144 and 16), X1 and X2 on sorted
-  windows beside the same windows shuffled, X3 against ``torch.add`` in
+  and at the flows' shapes (d = 64, 144 and 16) and the SIR PF's (1e4, 9),
+  X1 and X2 on sorted windows beside the same windows shuffled, X3 against ``torch.add`` in
   alternating pairs; the exact run ends at 2^25 beside the f32 ones at 2^24.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
@@ -77,22 +93,28 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from particle_filters_tpu_torch.benchmarks import (
+    dpf,
     exp_kernel_var,
     exp_resample_dma,
     kpf,
     mat,
+    ot_large,
     profile_small_n,
     skewt,
     snlg,
+    spf,
 )
+from particle_filters_tpu_torch.benchmarks._stats import P_MIN
 from particle_filters_tpu_torch.models import ParticleFilter
 from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
@@ -139,6 +161,14 @@ SKEWT_MSE_RTOL = {"ekf": 1e-3, "ukf": 1e-3, "edh200": 0.05, "edh10000": 0.05, "l
 # rank test; a p under this flags a shift of the port's flow, not chance.
 MAT_RANK_P = 1e-3
 DET_SEED = 11  # the determinism check's generator seed
+B2_SIR_SHAPE = (1, spf.N_SIR, 9)  # SPF example 2's SIR PF: one cloud of 10^4 x 9
+SPF_BETA_TOL = 1e-4  # beta* on the card against the CPU port
+# SPF example 2 runs its first SPF_EX2_STEPS time steps here (the module runs
+# all 50: python -m particle_filters_tpu_torch.benchmarks.spf).
+SPF_EX2_STEPS = 10
+DPF_TRAIN_STEPS = 20  # Adam steps of the trained RNN timed here (the module takes 300)
+OT_DENSE_TOL = 1e-4  # dense against blockwise Sinkhorn at N = 4096 on the card
+CHUNK_T, CHUNK_SIZE, CHUNK_STOP = 30, 10, 2  # run_chunked at N = 2^20: interrupt after 2
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -193,7 +223,7 @@ def _b2_cases(gen, n, device):
     yield "two point masses", _point_masses(n, device, n // 4, (3 * n) // 4)
 
 
-def check_b2(gen, n, device) -> float:
+def check_b2(gen, n, device, dims=(1, 3)) -> float:
     """B2 against its plain version: equal bit for bit (both copy values)."""
     max_err = 0.0
     for label, w in _b2_cases(gen, n, device):
@@ -202,7 +232,7 @@ def check_b2(gen, n, device) -> float:
         starts = _systematic_starts(gen, w, n)
         _check(bool((starts[1:] >= starts[:-1]).all()), f"starts nondecreasing ({label})")
         print(f"B2 {label:22s}: raw cumsum descents {descents}, starts nondecreasing (N={n})")
-        for d in (1, 3):
+        for d in dims:
             p = torch.randn((n, d), generator=gen, device=device)
             out = b2.resample_by_starts(p, starts)
             ref = b2.resample_by_starts_reference(p, starts)
@@ -215,8 +245,9 @@ def check_b2(gen, n, device) -> float:
 def _trial_weights(gen, trials, n, device):
     """(trials, n) weights: lognormal sigma = 2 rows, a point mass in row 1."""
     w = torch.softmax(2.0 * torch.randn((trials, n), generator=gen, device=device), dim=1)
-    w[1] = 0.0
-    w[1, n // 3] = 1.0
+    if trials > 1:
+        w[1] = 0.0
+        w[1, n // 3] = 1.0
     return w
 
 
@@ -967,7 +998,7 @@ def time_b2_trials(gen, device, card):
     """B2 at the flows' shapes with trial-offset starts: device time, plain,
     ``repeat_interleave`` and the byte bound, in turns."""
     out = {}
-    for trials, n, d in B2_TRIAL_SHAPES:
+    for trials, n, d in B2_TRIAL_SHAPES + (B2_SIR_SHAPE,):
         rows = trials * n
         sets = []
         for _ in range(4):
@@ -1119,6 +1150,143 @@ def time_fused_run(n, card, fused_run) -> None:
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
 
+# --- the SPF, DPF, OT and run_chunked paths --------------------------------------
+def _beta_gap(label, card_sol, cpu_sol):
+    """max |β_card − β_cpu| and max relative |β'_card − β'_cpu|."""
+    db = (card_sol[1].cpu() - cpu_sol[1]).abs().max().item()
+    dd = ((card_sol[2].cpu() - cpu_sol[2]).abs() / cpu_sol[2].abs().clamp(min=1.0)).max().item()
+    _check(db <= SPF_BETA_TOL and dd <= SPF_BETA_TOL,
+           f"{label}: beta* card vs CPU {db:.3e}, beta' {dd:.3e} <= {SPF_BETA_TOL}")
+    return db, dd
+
+
+def run_spf_path(device, card):
+    """The SPF columns: β* on the card against the CPU port (example 1's
+    solve at n_grid 1001, from its optimal row, and example 2's first
+    batched solve of its 20 runs at 301); example 1's rows (8 sets of 20
+    runs) against the JAX package's 8 by a two-sample test; example 2 (the
+    SPF rows and the SIR PF at N = 10^4 through B2) run by run against the
+    JAX package's on the same trajectories by a paired test. B2's count is
+    set to 0 just before the SIR PF's run and read just after."""
+    ex1 = spf.run_example1(device)
+    info = ex1["optimal"]["info"]
+    db, dd = _beta_gap("SPF example 1", (None, info["beta"], info["betadot"]),
+                       spf.solve_example1("cpu"))
+    print(f"SPF example 1 beta* solve (n_grid {spf.STEPS1 + 1}, multisection, tabulated): "
+          f"{ex1['optimal']['s'] - ex1['linear']['s']:.4f} s (the optimal row's less the "
+          f"linear row's); card vs CPU beta {db:.3e}, beta' {dd:.3e}  [{card}]")
+    d2 = spf.load_example2(device)
+    x0 = spf.prior_estimates(spf.RUNS2, device)
+    m_card = spf.example2_model(x0, d2["zs"][:, 0], device)
+    m_cpu = spf.example2_model(x0.cpu(), d2["zs"][:, 0].cpu(), torch.device("cpu"))
+    t0 = time.perf_counter()
+    sol2 = spf.solve_beta_star_bisection(m_card.M0, m_card.Mh, mu=spf.MU2, n_grid=spf.STEPS2 + 1)
+    torch.cuda.synchronize()
+    solve2_s = time.perf_counter() - t0
+    db2, dd2 = _beta_gap("SPF example 2", sol2, spf.solve_beta_star_bisection(
+        m_cpu.M0, m_cpu.Mh, mu=spf.MU2, n_grid=spf.STEPS2 + 1))
+    print(f"SPF example 2 beta* solve ({spf.RUNS2} runs batched, n_grid {spf.STEPS2 + 1}): "
+          f"{solve2_s:.4f} s; card vs CPU beta {db2:.3e}, beta' {dd2:.3e}  [{card}]")
+    ex2 = spf.run_example2(device, steps=SPF_EX2_STEPS)
+    spf.print_columns(ex1, ex2, card)
+    for mode, r in ex1.items():
+        _check(r["finite"], f"SPF example 1 {mode}: finite")
+        z, p = spf.ex1_against_jax(mode, r["rmses"])
+        _check(p >= P_MIN, f"SPF example 1 {mode}: RMSEs against the JAX package's, z {z}, "
+               f"p {p} >= {P_MIN}")
+    for name, r in ex2.items():
+        _check(r["finite"], f"SPF example 2 {name}: finite")
+        tests = spf.ex2_against_jax(name, r)
+        _check(len(tests) == len(spf.BLOCKS), f"SPF example 2 {name}: JAX references for "
+               f"{r['steps']} steps")
+        for block, (z, p) in tests.items():
+            _check(p >= P_MIN, f"SPF example 2 {name} {block}: per-run RMSEs against the "
+                   f"JAX package's, paired z {z}, p {p} >= {P_MIN}")
+    sir = ex2["sir_pf"]
+    _check(sir["b2_launches"] == sir["resample_steps"] > 0,
+           f"SPF example 2 SIR PF: B2 launched {sir['b2_launches']} times, once a resample "
+           f"step ({sir['resample_steps']})")
+    return {"B2": sir["b2_launches"]}
+
+
+def run_dpf_path(device, card):
+    """The DPF columns: every row's RMSEs over 8 seeds against the JAX
+    package's over 64 keys by a two-sample test; the trained RNN ``DPF_TRAIN_STEPS`` Adam
+    steps, timed a step; the committed trained parameters' held-out NLL
+    ``dpf.NLL_RATIO``× below baseline mode's. No kernel of ours runs here."""
+    lin = dpf.run_linear(device, train_steps=DPF_TRAIN_STEPS)
+    nl = dpf.run_nonlinear(device)
+    held = dpf.run_heldout(device)
+    dpf.print_columns(lin, nl, held, card)
+    for column, res in (("dpf_linear", lin), ("dpf_nonlinear", nl)):
+        for tag in ("soft", "ot", "rnn"):
+            r = res[tag]
+            _check(all(math.isfinite(x) for x in r["rmses"]), f"{column} {tag}: finite RMSEs")
+            z, p = dpf.against_jax(column, tag, r["rmses"])
+            _check(p >= P_MIN, f"{column} {tag}: RMSEs against the JAX package's, z {z}, "
+                   f"p {p} >= {P_MIN}")
+    t = lin["train"]
+    _check(math.isfinite(t["last_loss"]), "dpf_linear RNN training: finite loss")
+    _check(held["ratio"] >= dpf.NLL_RATIO,
+           f"held-out NLL: baseline / trained {held['ratio']} >= {dpf.NLL_RATIO}")
+
+
+def run_ot_path(device, card):
+    """Dense against blockwise Sinkhorn at N = 4096 on the card, then
+    ``ot_large`` at N = 4096, 16384, 65536 with peak memory."""
+    dense = ot_large.dense_vs_blockwise(device)
+    res = ot_large.run(device)
+    ot_large.print_rows(res, dense, card)
+    _check(dense["max_abs_diff"] <= OT_DENSE_TOL,
+           f"OT dense vs blockwise at N={dense['n']}: {dense['max_abs_diff']} <= "
+           f"{OT_DENSE_TOL}")
+    for n, r in res.items():
+        _check(r["finite"], f"ot_large N={n}: finite")
+        bound = ot_large.mean_err_bound(n)
+        _check(r["mean_err"] <= bound, f"ot_large N={n}: mean error {r['mean_err']} <= {bound}")
+    return res
+
+
+def run_chunked_path(device, card):
+    """``ParticleFilter.run_chunked`` on the SV model at N = 2^20: a run
+    interrupted after ``CHUNK_STOP`` pieces and resumed from its checkpoint
+    (with another generator object) equals ``run`` bit for bit. B2's count
+    is set to 0 just before the two chunked calls and read just after."""
+    sv = simulate_sv_1d(CHUNK_T, ALPHA, SIGMA, BETA, seed=7, device=device)
+    zs = sv.Y[:, None]
+    model = SVModel(ALPHA, BETA)
+    pf = ParticleFilter(lambda x, u: model.g(x), None, Q=[[SIGMA**2]], R=None, Np=N,
+                        resample_thresh=0.5, obs_loglik=model.obs_loglik, device=device)
+    var0 = SIGMA**2 / (1 - ALPHA**2)
+    st0 = pf.initialize(torch.Generator(device=device).manual_seed(3), [0.0], [[var0]])
+    fin_m, hist_m = pf.run(torch.Generator(device=device).manual_seed(4), st0, zs)
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as ckpt:
+        b2.resample_by_starts.launches = 0
+        t0 = time.perf_counter()
+        fin_p, _ = pf.run_chunked(torch.Generator(device=device).manual_seed(4), st0, zs,
+                                  chunk_size=CHUNK_SIZE, ckpt_dir=ckpt,
+                                  stop_after_chunks=CHUNK_STOP)
+        fin_r, hist_r = pf.run_chunked(torch.Generator(device=device).manual_seed(123), st0, zs,
+                                       chunk_size=CHUNK_SIZE, ckpt_dir=ckpt, resume=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = b2.resample_by_starts.launches
+    _check(int(fin_p.t) == CHUNK_SIZE * CHUNK_STOP, "run_chunked: interrupted where asked")
+    for f in ("particles", "log_weights", "mean", "cov", "t"):
+        _check(torch.equal(getattr(fin_m, f), getattr(fin_r, f)),
+               f"run_chunked resumed == run bit for bit (final {f})")
+    _check(set(hist_m) == set(hist_r), "run_chunked: the history's keys")
+    for k in hist_m:
+        _check(torch.equal(hist_m[k], hist_r[k]),
+               f"run_chunked resumed == run bit for bit (history {k})")
+    n_res = int(hist_m["resampled"].sum())
+    _check(launches == n_res > 0, f"run_chunked: B2 launched {launches}, want {n_res} > 0")
+    print(f"run_chunked N={N} T={CHUNK_T} in pieces of {CHUNK_SIZE}, interrupted after "
+          f"{CHUNK_STOP} and resumed: bit-equal to run (final state and all {len(hist_m)} "
+          f"history keys), {n_res} resample steps, {secs:.3f} s with checkpoints  [{card}]")
+    return {"B2": launches}
+
 
 def _build_all(gen) -> None:
     """One nvcc per CUDA source, all started together; then B1's Triton
@@ -1156,6 +1324,7 @@ def main() -> None:
 
     _build_all(gen)
     errs = {"B2": max([check_b2(gen, n, device) for n in (N, B2_RAGGED_N, EXACT_N)]
+                      + [check_b2(gen, B2_SIR_SHAPE[1], device, dims=B2_SIR_SHAPE[2:])]
                       + [check_b2_trials(gen, t, n, d, device) for t, n, d in B2_TRIAL_SHAPES]),
             "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
             "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device)}
@@ -1170,8 +1339,13 @@ def main() -> None:
     mat_counts = run_mat_path(device, card)
     run_kpf_path(device, card)
     check_simulators(device, card)
+    spf_counts = run_spf_path(device, card)
+    run_dpf_path(device, card)
+    run_ot_path(device, card)
+    chunked_counts = run_chunked_path(device, card)
     print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}, "
-          f"skew-t {skewt_counts}, MAT {mat_counts}")
+          f"skew-t {skewt_counts}, MAT {mat_counts}, SPF {spf_counts}, DPF {{}}, OT {{}}, "
+          f"run_chunked {chunked_counts}")
     check_determinism(N, device)
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)

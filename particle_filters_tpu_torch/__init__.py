@@ -3,7 +3,7 @@
 Module for module beside the JAX package: ``core``, ``simulators``,
 ``resampling``, ``models``, ``ops`` and ``utils``, with the hand-written
 Hopper kernels under ``ops`` (wrappers) and ``csrc`` (CUDA sources), and the
-profiling probes and the SNLG column under ``benchmarks``. Its entry points put their tensors on
+profiling probes and the filter columns under ``benchmarks``. Its entry points put their tensors on
 the card unless given ``device="cpu"``. It imports ``torch`` and never
 ``jax``, and sets no global torch flags.
 """

@@ -18,9 +18,17 @@
 - ``kpf``: the kernel particle filter on Lorenz-96 at nx = 1000, against
   the JAX package's posteriors;
 - ``main_path_turns``: ``chip_smoke.py``'s main path on this tree and on
-  another checkout in turns, each run in its own process.
+  another checkout in turns, each run in its own process;
+- ``spf``: the stochastic particle flow's example 1 (the twin of
+  ``bench_spf``) and example 2 (``examples/10_spf_example2.py``, with the
+  SIR PF at N = 10⁴ through B2);
+- ``dpf``: the differentiable PFs' ``dpf_linear`` and ``dpf_nonlinear``
+  columns (soft, OT, RNN, the trained RNN) and the held-out check of the
+  committed trained resampler;
+- ``ot_large``: blockwise Sinkhorn-OT resampling at N = 4096, 16384, 65536.
 
-``skewt``, ``mat`` and ``kpf`` read the JAX package's data from ``data/``.
+``skewt``, ``mat``, ``kpf``, ``spf`` and ``dpf`` read the JAX package's data
+from ``data/``.
 The first three time by the slope protocol of ``_slope``, ``b2_phases`` by
 CUDA-graph replay, the columns by wall clock to a sync. Importing runs
 nothing.

@@ -161,6 +161,16 @@ def profile_top(fn, device, top: int = 8):
     return wall_ms, sum(r[0] for r in rows), sorted(rows, reverse=True)[:top]
 
 
+def print_profile(label, fn, card="", top: int = 5):
+    """``fn()`` once on the card under the profiler: its device busy share
+    and top device ops, printed."""
+    wall_ms, device_ms, ops = profile_top(fn, torch.device("cuda"), top)
+    print(f"profiled {label}: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms wall "
+          f"({device_ms / wall_ms:.3f})  [{card}]")
+    for ms, calls, name in ops:
+        print(f"  {ms:10.3f} ms  x{calls:<6d} {name[:90]}")
+
+
 def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
                flows=FLOWS, profile=()):
     """The column at the given sizes: ``{tag: {...}}`` with ``total_s``,

@@ -12,8 +12,12 @@ arrays, into this package's, so both packages can start from one state.
 - ``Q`` becomes the f32 ``(Q, Lq)`` pair both filters build, with
   ``Lq = cholesky(Q + 1e-10·I)`` taken in numpy as the JAX fused filter does.
 - ``LGSSMParams``, an ``SNLGDataset``, a ``SkewTTrialResult``, a
-  ``MATDataset`` and a ``KPFState`` become this package's (counts stay
-  int32, as the JAX simulators return them).
+  ``MATDataset``, a ``KPFState`` and a ``LinearGaussianBayes`` become this
+  package's (counts stay int32, as the JAX simulators return them).
+- The RNN resampler's parameter pytree, given as the JAX pytree or as the
+  ``.npz`` of its leaves in ``jax.tree_util.tree_flatten`` order that
+  ``examples/09_train_rnn_resampler.py`` writes, loads into an
+  ``RNNResampler``; :func:`rnn_params_to_jax` gives the pytree back.
 
 :func:`to_numpy` goes back: a state's fields as numpy arrays.
 """
@@ -21,6 +25,7 @@ arrays, into this package's, so both packages can start from one state.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -29,9 +34,11 @@ from particle_filters_tpu_torch.core.structs import PFState, state_fields
 from particle_filters_tpu_torch.models.edh_particle_filter import FlowPFState
 from particle_filters_tpu_torch.models.extended_kalman_filter import EKFState
 from particle_filters_tpu_torch.models.kernel_particle_filter import KPFState
+from particle_filters_tpu_torch.models.stochastic_particle_filter import LinearGaussianBayes
 from particle_filters_tpu_torch.models.trackers import TrackerState
 from particle_filters_tpu_torch.models.unscented_kalman_filter import UKFState
 from particle_filters_tpu_torch.ops.fused_pf import noise_factor
+from particle_filters_tpu_torch.resampling.rnn import RNNResampler
 from particle_filters_tpu_torch.simulators.acoustic_tracking import MATDataset
 from particle_filters_tpu_torch.simulators.lgssm import LGSSMParams
 from particle_filters_tpu_torch.simulators.sensor_network_lg import SNLGConfig, SNLGDataset
@@ -133,3 +140,38 @@ def kpf_state_from_jax(state, *, device="cuda") -> KPFState:
     """A JAX ``KPFState`` as this package's: f32 particles, weights, s and
     ds_history, int32 steps."""
     return _fields_from(KPFState, state, device)
+
+
+def linear_gaussian_bayes_from_jax(model, *, device="cuda") -> LinearGaussianBayes:
+    """A JAX ``LinearGaussianBayes`` as this package's, field by field, f32
+    on ``device``."""
+    return _fields_from(LinearGaussianBayes, model, device)
+
+
+def rnn_params_from_jax(resampler: RNNResampler, params) -> RNNResampler:
+    """Copy the JAX resampler's parameters into ``resampler`` (built with
+    the same options) and return it. ``params`` is the JAX pytree
+    (``{"cells": [...], "out_kernel", "out_bias"}``, leaves read by name)
+    or the path of an ``.npz`` whose ``arr_i`` are its leaves in
+    ``tree_flatten`` order (:meth:`RNNResampler.leaf_names`)."""
+    if isinstance(params, (str, os.PathLike)):
+        with np.load(params) as z:
+            leaves = [z[f"arr_{i}"] for i in range(len(z.files))]
+    else:
+        leaves = []
+        for name in resampler.leaf_names():
+            node = params
+            for part in name.split("."):
+                node = node[int(part)] if part.isdigit() else node[part]
+            leaves.append(np.array(node, np.float32))
+    return resampler.load_leaves([np.array(a, np.float32) for a in leaves])
+
+
+def rnn_params_to_jax(resampler: RNNResampler) -> dict:
+    """The resampler's parameters as the JAX package's pytree of numpy
+    arrays."""
+    tree = resampler.params()
+    return {"cells": [{k: v.detach().cpu().numpy() for k, v in cell.items()}
+                      for cell in tree["cells"]],
+            "out_kernel": tree["out_kernel"].detach().cpu().numpy(),
+            "out_bias": tree["out_bias"].detach().cpu().numpy()}

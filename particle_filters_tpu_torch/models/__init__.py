@@ -1,4 +1,9 @@
 from particle_filters_tpu_torch.core.structs import PFState
+from particle_filters_tpu_torch.models.dpf import (
+    DPF_OT,
+    DifferentiableParticleFilter,
+    DifferentiableParticleFilterRNN,
+)
 from particle_filters_tpu_torch.models.edh_particle_filter import (
     EDHConfig,
     EDHFlowPF,
@@ -22,6 +27,12 @@ from particle_filters_tpu_torch.models.kernel_particle_filter import (
 )
 from particle_filters_tpu_torch.models.ledh_particle_filter import LEDHConfig, LEDHFlowPF
 from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
+from particle_filters_tpu_torch.models.stochastic_particle_filter import (
+    LinearGaussianBayes,
+    kappa2_and_derivative,
+    run_generalized_spf,
+    solve_beta_star_bisection,
+)
 from particle_filters_tpu_torch.models.trackers import (
     EKFTracker,
     GaussianTracker,
@@ -35,6 +46,9 @@ from particle_filters_tpu_torch.models.unscented_kalman_filter import (
 )
 
 __all__ = [
+    "DPF_OT",
+    "DifferentiableParticleFilter",
+    "DifferentiableParticleFilterRNN",
     "EDHConfig",
     "EDHFlowPF",
     "EKFState",
@@ -48,6 +62,7 @@ __all__ = [
     "KernelParticleFilter",
     "LEDHConfig",
     "LEDHFlowPF",
+    "LinearGaussianBayes",
     "Model",
     "PFState",
     "ParticleFilter",
@@ -58,8 +73,11 @@ __all__ = [
     "build_localization_matrix",
     "gaspari_cohn",
     "kalman_filter_general",
+    "kappa2_and_derivative",
     "make_ekf_state",
     "make_ukf_state",
     "numerical_jacobian_g",
     "numerical_jacobian_h",
+    "run_generalized_spf",
+    "solve_beta_star_bisection",
 ]

@@ -9,14 +9,16 @@ the values goes through kernel B2 on a CUDA tensor
 (``resampling.hard.systematic_resample_values``) and through its plain
 version on a CPU tensor. ``run`` is a Python loop over the steps; with
 ``track_degeneracy`` it also records the degeneracy panel of
-``utils.diagnostics``.
+``utils.diagnostics``. ``run_chunked`` runs it in pieces with a checkpoint
+between them (``utils.checkpoint``), the generator's state included, and
+resumes from the last one.
 
-Not ported yet: ``run_chunked`` (checkpointing) and the sharded
-``axis_name`` arguments.
+Not ported yet: the sharded ``axis_name`` arguments.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -244,3 +246,69 @@ class ParticleFilter:
         out = {k: torch.stack(v) for k, v in hist.items()}
         out.update(resampled=resampled, exchange_ok=torch.ones_like(resampled))
         return state, out
+
+    def run_chunked(self, generator, state0: PFState, zs, us=None, *, chunk_size: int,
+                    ckpt_dir: Optional[str] = None, resume: bool = False,
+                    stop_after_chunks: Optional[int] = None,
+                    track_degeneracy: bool = False):
+        """``run`` in ``chunk_size``-step pieces with a checkpoint between
+        them, for long runs that must survive an interruption.
+
+        ``run`` draws from ``generator`` in step order, so the pieces, run
+        one after another from one generator, give the same trajectory,
+        history and final state as one ``run``, bit for bit. A checkpoint
+        therefore holds the generator's state (``get_state()``: on the card
+        Philox's seed and offset) beside the filter state.
+
+        - ``ckpt_dir``: after each piece the state and the generator's state
+          go to ``ckpt_dir/state`` and the piece's history to
+          ``ckpt_dir/hist``, under ``step_<c>``, c the pieces done.
+        - ``resume=True``: continue from the last checkpoint in
+          ``ckpt_dir`` (``generator`` takes its saved state), with the
+          histories of the pieces done read back, so the history returned
+          covers the whole sequence.
+        - ``stop_after_chunks=j``: return after j more pieces (an
+          interruption); the history is then partial.
+        """
+        if chunk_size <= 0:
+            raise ValueError("chunk_size must be positive.")
+        if stop_after_chunks is not None and stop_after_chunks < 1:
+            raise ValueError("stop_after_chunks must be >= 1.")
+        if resume and ckpt_dir is None:
+            raise ValueError("resume=True requires ckpt_dir.")
+        if zs.shape[0] == 0:
+            raise ValueError("zs must contain at least one observation.")
+        from particle_filters_tpu_torch.utils.checkpoint import (
+            latest_step,
+            restore_checkpoint,
+            save_checkpoint,
+        )
+
+        T = zs.shape[0]
+        n_chunks = -(-T // chunk_size)
+        state, hists, start = state0, [], 0
+        if resume:
+            done = latest_step(os.path.join(ckpt_dir, "state"))
+            if done is not None:
+                saved = restore_checkpoint(os.path.join(ckpt_dir, "state"),
+                                           {"state": state0, "generator": None}, step=done)
+                state = saved["state"]
+                generator.set_state(saved["generator"])
+                hists = [restore_checkpoint(os.path.join(ckpt_dir, "hist"), step=c)
+                         for c in range(1, done + 1)]
+                hists = [{k: v.to(self.device) for k, v in h.items()} for h in hists]
+                start = done
+        end = n_chunks if stop_after_chunks is None else min(n_chunks, start + stop_after_chunks)
+        for c in range(start, end):
+            lo, hi = c * chunk_size, min((c + 1) * chunk_size, T)
+            state, hist = self.run(generator, state, zs[lo:hi],
+                                   None if us is None else us[lo:hi],
+                                   track_degeneracy=track_degeneracy)
+            hists.append(hist)
+            if ckpt_dir is not None:
+                save_checkpoint(os.path.join(ckpt_dir, "state"),
+                                {"state": state, "generator": generator.get_state()},
+                                step=c + 1)
+                save_checkpoint(os.path.join(ckpt_dir, "hist"), hist, step=c + 1)
+        history = {k: torch.cat([h[k] for h in hists]) for k in hists[0]} if hists else {}
+        return state, history

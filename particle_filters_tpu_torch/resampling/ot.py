@@ -1,0 +1,130 @@
+"""Entropy-regularized optimal-transport (Sinkhorn) differentiable
+resampling (PyTorch port of ``particle_filters_tpu/resampling/ot.py``).
+
+Squared-Euclidean cost, damped dual c-transform updates
+f ← (1−δ)f + δ·τ_ε(b, g, C), the transport plan P = a bᵀ ⊙ exp((f⊕g−C)/ε),
+the barycentric projection x'ⱼ = (Pᵀx)ⱼ / bⱼ, uniform output weights, and the
+OT-distance / sparsity / dual diagnostics. Each half-update is one
+logsumexp over the whole cost matrix; the ``n_iters`` iterations are
+unrolled (a Python loop), so autograd differentiates through them.
+
+The cost comes from an x·yᵀ product, and (f⊕g−C)/ε at ε = 0.01 multiplies
+any error in C by 100: on the card it must be formed with TF32 off, which
+the caller sets (``torch.backends.cuda.matmul.allow_tf32 = False``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from particle_filters_tpu_torch.core.weights import uniform_logw
+from particle_filters_tpu_torch.resampling.soft import log_normalize_lastaxis
+
+
+def pairwise_squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """C[i, j] = ‖x_i − y_j‖² by the (x² − 2xy + y²) expansion, one matmul,
+    clamped at 0."""
+    x_sq = torch.sum(x * x, dim=-1, keepdim=True)  # (N, 1)
+    y_sq = torch.sum(y * y, dim=-1, keepdim=True)  # (M, 1)
+    xy = x @ y.T
+    return torch.clamp(x_sq - 2.0 * xy + y_sq.T, min=0.0)
+
+
+def sinkhorn_ot_resample(
+    particles: torch.Tensor,
+    weights: torch.Tensor,
+    *,
+    epsilon: float = 0.1,
+    n_iters: int = 50,
+    min_val: float = 1e-12,
+    tol: float = 1e-6,
+    damping: float = 0.5,
+    return_diagnostics: bool = False,
+):
+    """Sinkhorn-OT resample of an (N, d) cloud with linear weights (N,).
+
+    Returns ``(new_particles, new_weights)`` with uniform ``new_weights``,
+    optionally plus a diagnostics dict. All ``n_iters`` damped iterations
+    run (no data-dependent early exit); convergence is reported by the last
+    dual change, ``converged`` = that change below ``tol``.
+    """
+    n = particles.shape[0]
+    dtype = particles.dtype
+
+    w = torch.clamp(weights, min=min_val)
+    a = w / (torch.sum(w) + min_val)  # source mass
+    log_a = torch.log(a)
+    log_b = torch.full((n,), -math.log(n), dtype=dtype, device=particles.device)
+
+    C = pairwise_squared_distances(particles, particles)
+
+    def tau_f(g):
+        # τ_i = −ε logsumexp_j (log b_j + (g_j − C_ij)/ε)
+        return -epsilon * torch.logsumexp(log_b[None, :] + (g[None, :] - C) / epsilon, dim=1)
+
+    def tau_g(f):
+        return -epsilon * torch.logsumexp(log_a[:, None] + (f[:, None] - C) / epsilon, dim=0)
+
+    f = torch.zeros((n,), dtype=dtype, device=particles.device)
+    g = torch.zeros_like(f)
+    deltas = []
+    for _ in range(n_iters):
+        f_new = (1.0 - damping) * f + damping * tau_f(g)
+        g_new = (1.0 - damping) * g + damping * tau_g(f_new)
+        if return_diagnostics:
+            deltas.append(torch.maximum(torch.amax(torch.abs(f_new - f)),
+                                        torch.amax(torch.abs(g_new - g))))
+        f, g = f_new, g_new
+
+    # Transport plan and barycentric projection.
+    log_P = log_a[:, None] + log_b[None, :] + (f[:, None] + g[None, :] - C) / epsilon
+    P = torch.exp(log_P)
+    new_particles = (P.T @ particles) * n  # ÷ b_j with b_j = 1/N
+    new_weights = torch.exp(log_b)
+
+    if not return_diagnostics:
+        return new_particles, new_weights
+
+    history = torch.stack(deltas)
+    diagnostics = {
+        "final_delta": history[-1],
+        "converged": history[-1] < tol,
+        "convergence_history": history,
+        "ot_distance": torch.sum(P * C),
+        "transport_plan_sparsity": torch.mean((P > 1e-6).to(dtype)),
+        "dual_variables": {
+            "f_mean": torch.mean(f),
+            "f_std": torch.std(f, unbiased=False),
+            "g_mean": torch.mean(g),
+            "g_std": torch.std(g, unbiased=False),
+        },
+        "epsilon": epsilon,
+    }
+    return new_particles, new_weights, diagnostics
+
+
+def ot_resample(
+    generator,
+    particles: torch.Tensor,
+    log_weights: torch.Tensor,
+    *,
+    epsilon: float = 0.1,
+    n_iters: int = 50,
+    damping: float = 0.5,
+    return_aux: bool = False,
+):
+    """The shared resampler interface: ``(generator, particles, logw) →
+    (new_particles, uniform logw[, aux])``. The generator is unused (OT
+    resampling is deterministic given the cloud) and kept for uniformity."""
+    del generator
+    logw_n, _ = log_normalize_lastaxis(log_weights)
+    out = sinkhorn_ot_resample(
+        particles, torch.exp(logw_n), epsilon=epsilon, n_iters=n_iters,
+        damping=damping, return_diagnostics=return_aux,
+    )
+    new_logw = uniform_logw(particles.shape[-2], log_weights.dtype, log_weights.device)
+    if return_aux:
+        return out[0], new_logw, out[2]
+    return out[0], new_logw

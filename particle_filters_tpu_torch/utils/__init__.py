@@ -1,6 +1,12 @@
-"""Utilities of the port: filtering metrics (``diagnostics``) and
-device-synchronised timing (``timing``)."""
+"""Utilities of the port: filtering metrics (``diagnostics``),
+device-synchronised timing (``timing``) and checkpoints
+(``checkpoint``)."""
 
+from particle_filters_tpu_torch.utils.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from particle_filters_tpu_torch.utils.diagnostics import (
     coverage_95,
     degeneracy_report,
@@ -20,12 +26,15 @@ __all__ = [
     "Timer",
     "coverage_95",
     "degeneracy_report",
+    "latest_step",
     "mae",
     "max_weight",
     "mse",
     "nees",
     "omat",
+    "restore_checkpoint",
     "rmse",
+    "save_checkpoint",
     "timed",
     "unique_fraction",
     "weight_entropy",

@@ -146,12 +146,14 @@ def test_forced_resample_resets_weights(method):
 
 def test_unported_options_raise():
     """``track_degeneracy`` is ported (``test_torch_diagnostics.py`` holds
-    it against the JAX package) and runs; ``run_chunked`` is not ported."""
+    it against the JAX package) and runs; ``run_chunked`` is ported
+    (``test_torch_checkpoint.py``) and rejects a chunk size below 1."""
     _, tpf = _sv_pair(16)
     gen = torch.Generator()
     _, hist = tpf.run(gen, tpf.initialize(gen, [0.0], [[1.0]]), np.zeros((2, 1)),
                       track_degeneracy=True)
     assert hist["unique_frac"].shape == (2,)
-    assert not hasattr(tpf, "run_chunked")
+    with pytest.raises(ValueError, match="chunk_size"):
+        tpf.run_chunked(gen, tpf.initialize(gen, [0.0], [[1.0]]), np.zeros((2, 1)), chunk_size=0)
     with pytest.raises(ValueError, match="obs_loglik"):
         ParticleFilter(lambda x, u: x, None, np.eye(1), None, device="cpu")
