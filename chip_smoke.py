@@ -72,6 +72,25 @@ super-groups get NaN). Then:
   pieces, interrupted and resumed from its checkpoint, bit-equal to run;
 - determinism: two FusedSIRFilter runs and two ParticleFilter runs (with
   the degeneracy panel) from one seed at N = 2^20, T = 200, bit-equal;
+- the parallel path (``benchmarks.sharded``), in a one-card NCCL group (a
+  world of one: every collective a real NCCL call): the sharded fused SV
+  run at N = 2^20, T = 200 in all-gather mode bit-equal to
+  ``FusedSIRFilter`` and in neighbour mode within ``sharded.NEIGHBOR_TOL``
+  of it (B1 and B2 counted, ms/step beside the unsharded run's); B1 as four
+  ranks' launches over 2^18 bit-equal to one over 2^20, their partials
+  folded by ``fold_ranks`` (the filter's cross-rank step) within
+  ``sharded.FOLD_TOL`` of one launch's row; B2's M→n form
+  bit-equal to its plain version and to ``repeat_interleave`` at a pool of
+  5·2^18, the all-gather slice of 2^20 and (10^4, 2000, 9), timed; the
+  pooled exact run ends at 2^25 equal to ``exact_child_run_ends_u`` on card
+  and CPU; the sharded ``ParticleFilter`` in neighbour mode at 2^20 held to
+  the main path's gates; the sharded EDH-10000 on SNLG d = 64 against the
+  unsharded flow; the sharded DPF train step (8 SV sequences, N = 100,
+  T = 100) equal to the unsharded step; the collectives' host cost;
+- the sv_classic column uncut (EKF, UKF, the SIR PF at N = 2000, T = 2000)
+  and the nlngssm column (EDH, LEDH, KPF at N = 500) cut to its first 100
+  steps, each against the JAX package's committed values (Kalman RMSEs
+  within 1e-3, the others by Welch tests over seeds, p >= 1e-3);
 - the profiling path: the small-N step decomposition
   (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
   variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
@@ -102,17 +121,22 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+import torch.distributed as dist
+
 from particle_filters_tpu_torch.benchmarks import (
     dpf,
     exp_kernel_var,
     exp_resample_dma,
     kpf,
     mat,
+    nlngssm,
     ot_large,
     profile_small_n,
+    sharded,
     skewt,
     snlg,
     spf,
+    sv_classic,
 )
 from particle_filters_tpu_torch.benchmarks._stats import P_MIN
 from particle_filters_tpu_torch.models import ParticleFilter
@@ -131,6 +155,7 @@ from particle_filters_tpu_torch.ops.fused_pf import (
     row_width,
 )
 from particle_filters_tpu_torch.ops.resample_blocked import fine_chunks
+from particle_filters_tpu_torch.parallel.launch import process_group
 from particle_filters_tpu_torch.resampling.hard import (
     _child_run_ends_u,
     _systematic_starts,
@@ -910,19 +935,23 @@ def _rotating(fn, sets):
     return lambda: fn(*sets[next(it) % len(sets)])
 
 
-def _b1_timed(gen, n, device, programs=None, eps=None):
+def _b1_timed(gen, n, device, programs=None, eps=None, shard=(0, 1)):
+    """B1 at ``n`` (as rank ``shard[0]`` of ``shard[1]`` of a cloud of
+    ``shard[1]·n``: its plain version then draws the whole cloud's normals
+    and keeps its own, as the plain version of the sharded step does)."""
     model = SVModel(ALPHA, BETA)
     f, *_ = _b1_inputs(gen, model, [[SIGMA**2]], n, device, False)
     sets = [_b1_inputs(gen, model, [[SIGMA**2]], n, device, False)[1:] for _ in range(8)]
     work = StepWork(1, device, programs=programs)
+    rank, ranks = shard
 
     def kern(x, lw, off_u, z):
         return fused_step(x, lw, off_u, z, f.Lq, f.params, model, seed=7, eps=eps,
-                          work=work)
+                          work=work, shard=shard)
 
     def plain(x, lw, off_u, z):  # the plain step draws its normals too
-        eps = torch.randn(x.shape, device=device)
-        return fused_step_reference(x, lw, off_u, z, eps, f.Lq, model)
+        eps = torch.randn((1, ranks * n), device=device)[:, rank * n:(rank + 1) * n]
+        return fused_step_reference(x, lw, off_u, z, eps, f.Lq, model, ranks * n)
 
     out = kern(*sets[0])
     nbytes = _nbytes(*sets[0], f.Lq, f.params, *out)
@@ -1288,6 +1317,175 @@ def run_chunked_path(device, card):
     return {"B2": launches}
 
 
+# --- the parallel path: the multi-device layer at world size 1 over NCCL ------
+def time_b1_shard(gen, device, card):
+    """B1 as rank 3 of 4 of a cloud of 2^20 (2^18 particles, its Philox
+    counters offset), in turns with its plain version: ``(ms, plain_ms,
+    None, bound)``."""
+    kern, plain, _, sets, bound = _b1_timed(gen, N // 4, device, shard=(3, 4))
+    kern, plain = _rotating(kern, sets), _rotating(plain, sets)
+    t = [_graph_ms(f) for f in (kern, plain, plain, kern)]
+    ms, plain_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"B1 as rank 3 of 4 at N={N // 4} (of {N}): device {ms:.6f} ms, plain {plain_ms:.6f} "
+          f"ms; bound {bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms:.3f} of it  [{card}]")
+    return ms, plain_ms, None, bound
+
+
+def time_b2_m_to_n(gen, device, card):
+    """B2's M→n form at ``benchmarks/sharded.py``'s shapes: bit-equal to its
+    plain version and to ``repeat_interleave`` over the window's child
+    counts; device time of kernel, plain and that call in turns over four
+    input sets, beside the bound of what the data needs. ``{label: (ms,
+    plain_ms, library_ms, bound)}``."""
+    cases = [sharded.b2_cases(gen, device) for _ in range(4)]
+    out = {}
+    for i, (label, values, starts, n, off) in enumerate(cases[0]):
+        d = values.shape[1]
+        sets = [(c[i][1], c[i][2], sharded.b2_work(c[i][2], n, off, d)[2]) for c in cases]
+        got = b2.resample_by_starts(values, starts, n_out=n, offset=off)
+        _check(torch.equal(got, b2.resample_by_starts_reference(values, starts, n, off)),
+               f"B2 M->n == plain bit for bit ({label})")
+        _check(torch.equal(got, torch.repeat_interleave(values, sets[0][2], dim=0,
+                                                        output_size=n)),
+               f"B2 M->n == repeat_interleave of the window's counts ({label})")
+        kern = _rotating(lambda v, s, c: b2.resample_by_starts(v, s, n_out=n, offset=off),
+                         sets)
+        plain = _rotating(lambda v, s, c: b2.resample_by_starts_reference(v, s, n, off), sets)
+        lib = _rotating(lambda v, s, c: torch.repeat_interleave(v, c, dim=0, output_size=n),
+                        sets)
+        t = [_graph_ms(f) for f in (kern, plain, lib, lib, plain, kern)]
+        ms, plain_ms, lib_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        nbytes, ops, _ = sharded.b2_work(starts, n, off, d)
+        bound = _bound(nbytes, ops)
+        out[label] = (ms, plain_ms, lib_ms, bound)
+        print(f"B2 M->n {label}: M={values.shape[0]}, n={n}, d={d}, offset {off}: bit-equal to "
+              f"plain; device {ms:.6f} ms, plain {plain_ms:.6f} ms, repeat_interleave "
+              f"{lib_ms:.6f} ms; bound {bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms:.3f} "
+              f"of it  [{card}]")
+    return out
+
+
+def _sharded_fused_checks(sv, runs, counts, card):
+    (fin1, h1, s1), (fin_a, ha, s_a), (_, hn, s_n) = (runs[k] for k in
+                                                       ("single", "all_gather", "neighbor"))
+    _check(torch.equal(fin1[0], fin_a[0]), "sharded all-gather: final particles bit-equal")
+    for k in ("mean", "cov", "log_evidence", "resampled"):
+        _check(torch.equal(h1[k], ha[k]), f"sharded all-gather: history[{k}] bit-equal")
+    ulp = torch.abs(h1["ess"] - ha["ess"]) / torch.abs(torch.nextafter(
+        h1["ess"], torch.full_like(h1["ess"], math.inf)) - h1["ess"])
+    _check(bool((ulp <= 2).all()), f"sharded all-gather: ESS within 2 ulp ({ulp.max().item()})")
+    _check(bool(hn["exchange_ok"].all()), "sharded neighbor: exchange_ok on every step")
+    rmse, frac = _check_history(hn, sv, "sharded neighbor")
+    tol = sharded.NEIGHBOR_TOL
+    d_mean = (hn["mean"] - ha["mean"]).abs().max().item()
+    d_ess = ((hn["ess"] - ha["ess"]).abs() / ha["ess"]).max().item()
+    d_ll = (hn["log_evidence"] - ha["log_evidence"]).abs().max().item()
+    _check(d_mean <= tol["mean"] and d_ess <= tol["ess_rel"] and d_ll <= tol["log_evidence"],
+           f"sharded neighbor within {tol} of all-gather: mean {d_mean}, ess {d_ess}, "
+           f"log evidence {d_ll}")
+    n_res = int(ha["resampled"].sum()) + int(hn["resampled"].sum())
+    _check(counts["B1"] == 2 * T, f"sharded runs: B1 launched {counts['B1']}, want {2 * T}")
+    _check(counts["B2"] == n_res > 0, f"sharded runs: B2 launched {counts['B2']}, want {n_res}")
+    print(f"sharded fused SV N={N} T={T}, one rank over NCCL: all-gather bit-equal to "
+          f"FusedSIRFilter (particles, mean, cov, log evidence, resample steps; ESS within 2 "
+          f"ulp); neighbor sv_rmse {rmse:.4f}, resample_frac {frac:.3f}, exchange_ok throughout, "
+          f"max |mean - all-gather| {d_mean:.3e}, ESS rel {d_ess:.3e}, log evidence "
+          f"{d_ll:.3e}; ms/step unsharded {s1 * 1e3:.4f}, all-gather {s_a * 1e3:.4f}, neighbor "
+          f"{s_n * 1e3:.4f}; launches {counts}  [{card}]")
+
+
+def run_parallel_path(gen, device, card):
+    """The multi-device layer (``benchmarks/sharded.py``) in a one-card NCCL
+    group opened from a FileStore and destroyed after: the sharded fused SV
+    run in both modes against ``FusedSIRFilter`` (B1 and B2 counted: set to
+    0 just before each sharded run, read just after), B1's offset form,
+    B2's M→n form, the pooled exact run ends at 2^25, the sharded
+    ParticleFilter in neighbour mode, the sharded EDH on SNLG d = 64 and
+    the sharded DPF train step. Returns the sharded runs' launches; the
+    kernels' new forms are timed and printed."""
+    with process_group("nccl"):
+        _check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+               "a one-rank NCCL group")
+        sv, runs, counts = sharded.fused_runs(device)
+        _sharded_fused_checks(sv, runs, counts, card)
+        err_b1, fold_err = sharded.b1_offset(gen, device)
+        _check(err_b1 == 0.0, f"B1 with global offsets: 4 launches of 2^18 == one of 2^20 "
+                              f"(x' and lw'), max |diff| {err_b1}")
+        _check(fold_err <= 1.0, f"the 4 launches' partials folded by fold_ranks within "
+                                f"{sharded.FOLD_TOL} of one launch's row ({fold_err} of it)")
+        print(f"B1 with global offsets: four launches over 2^18 bit-equal to one over {N} "
+              f"(x' and lw', carried and uniform off_u); their partials folded by fold_ranks "
+              f"over the NCCL group within {fold_err:.4f} of {sharded.FOLD_TOL} of one "
+              f"launch's row")
+        time_b1_shard(gen, device, card)
+        time_b2_m_to_n(gen, device, card)
+        for label, (pool_eq, cpu_eq) in sharded.exact_pool(gen, device).items():
+            _check(pool_eq and cpu_eq, f"pooled exact run ends at 2^25 == exact_child_run_ends_u "
+                                       f"on the card ({pool_eq}) and the CPU ({cpu_eq}), {label}")
+        print(f"pooled exact run ends N={sharded.EXACT_N}: bit-identical to "
+              f"exact_child_run_ends_u on the card and on the CPU (sigma=2, point mass)")
+        sv, hg, hs, launches = sharded.general_pf(device)
+        rmse, frac = _check_history(hs, sv, "sharded general neighbor")
+        n_res = int(hs["resampled"].sum())
+        _check(bool(hs["exchange_ok"].all()), "sharded general: exchange_ok throughout")
+        _check(launches == n_res > 0, f"sharded general: B2 launched {launches}, want {n_res}")
+        ll, ll_s = hg["log_evidence"].sum().item(), hs["log_evidence"].sum().item()
+        _check(abs(ll_s - ll) <= 0.03 * abs(ll) + 3.0,
+               f"sharded general log evidence {ll_s} vs unsharded {ll}")
+        print(f"sharded ParticleFilter neighbor N={N} T={T}: sv_rmse {rmse:.4f}, resample_frac "
+              f"{frac:.3f}, exchange_ok throughout, B2 {launches}, log evidence {ll_s:.3f} "
+              f"(unsharded {ll:.3f})  [{card}]")
+        print(f"collectives on one rank, host us a call: "
+              f"{ {k: round(v, 1) for k, v in sharded.collective_us(device).items()} }  [{card}]")
+        X, h1, hs, s1, ss = sharded.snlg_edh(device)
+        X = torch.as_tensor(X, device=device)
+        d_mean = (h1["mean"] - hs["mean"]).abs().max().item()
+        mse1 = torch.mean((h1["mean"] - X) ** 2).item()
+        mses = torch.mean((hs["mean"] - X) ** 2).item()
+        tol = sharded.EDH_TOL
+        _check(torch.equal(h1["resampled"], hs["resampled"]), "sharded EDH: same resample steps")
+        _check(d_mean <= tol["mean"] and abs(mses - mse1) <= tol["mse_rel"] * mse1,
+               f"sharded EDH within {tol} of the unsharded flow: mean {d_mean}, MSE {mses} vs "
+               f"{mse1}")
+        print(f"sharded EDH-{sharded.EDH_N} on SNLG d=64, T={sharded.EDH_T}, no process noise: "
+              f"max |mean - unsharded| {d_mean:.3e}, MSE {mses:.6f} (unsharded {mse1:.6f}); "
+              f"{ss:.3f} s sharded, {s1:.3f} s unsharded (means of two in turns)  [{card}]")
+        dpf_out = sharded.dpf_step(device)
+        (l1, g1, t1), (l2, g2, t2) = dpf_out["unsharded"], dpf_out["sharded"]
+        _check(torch.allclose(l2, l1, rtol=1e-6, atol=0.0) and all(
+            torch.allclose(g2[k], g1[k], rtol=1e-6, atol=1e-7) for k in g1),
+            f"sharded DPF step == unsharded: loss {l2.item()} vs {l1.item()}, grads {g2} vs {g1}")
+        print(f"sharded DPF train step (SV, N={sharded.DPF_N}, T={sharded.DPF_T}, "
+              f"{sharded.DPF_B} sequences): loss {l2.item():.6f} and grads "
+              f"{ {k: round(v.item(), 6) for k, v in g2.items()} } equal to the unsharded step's; "
+              f"{t2:.3f} s sharded, {t1:.3f} s unsharded  [{card}]")
+    return counts
+
+
+# --- the sv_classic and nlngssm columns -----------------------------------------
+def run_sv_columns(device, card):
+    """``bench_sv_classic``'s column uncut (EKF and UKF on the log-squared
+    observations; the SIR PF at N = 2000, T = 2000 over ``sv_classic.SEEDS``
+    seeds) and ``bench_nlngssm_flows``' (EDH, LEDH, KPF at N = 500 over
+    ``nlngssm.SEEDS`` seeds) cut to its first ``nlngssm.T_CUT`` steps,
+    each held to the JAX package's committed values by its module's gates.
+    B2's count is set to 0 just before the PF runs and read just after."""
+    data = sv_classic.load_data(device)
+    res = sv_classic.run_column(device, data)
+    sv_classic.print_column(res, data, card)
+    for row, (value, ref, held) in sv_classic.gates(res, data).items():
+        _check(held, f"sv_classic {row}: {value} against the JAX package's {ref}")
+    r = res["pf"]
+    _check(r["b2_launches"] == r["resample_steps"] > 0,
+           f"sv_classic pf: B2 launched {r['b2_launches']}, want {r['resample_steps']} > 0")
+    res_n = nlngssm.run_column(device, data, t=nlngssm.T_CUT)
+    nlngssm.print_column(res_n, data, card)
+    for row, (p, p_min, held) in nlngssm.gates(res_n, data, cut=True).items():
+        _check(held, f"nlngssm {row} (first {nlngssm.T_CUT} steps): RMSEs against the JAX "
+                     f"package's, Welch p {p} >= {p_min}")
+    return {"B2": r["b2_launches"]}
+
+
 def _build_all(gen) -> None:
     """One nvcc per CUDA source, all started together; then B1's Triton
     compiles (two models, drawn and injected normals)."""
@@ -1343,9 +1541,12 @@ def main() -> None:
     run_dpf_path(device, card)
     run_ot_path(device, card)
     chunked_counts = run_chunked_path(device, card)
+    par_counts = run_parallel_path(gen, device, card)
+    sv_counts = run_sv_columns(device, card)
     print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}, "
           f"skew-t {skewt_counts}, MAT {mat_counts}, SPF {spf_counts}, DPF {{}}, OT {{}}, "
-          f"run_chunked {chunked_counts}")
+          f"run_chunked {chunked_counts}, parallel {par_counts}, sv_classic {sv_counts}, "
+          f"nlngssm {{}}")
     check_determinism(N, device)
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)

@@ -34,7 +34,7 @@ from particle_filters_tpu_torch.ops.resample import resample_by_starts_reference
 from particle_filters_tpu_torch.resampling.hard import _systematic_starts
 
 N = 1 << 20
-_KEEP = "  if (n > 0) { if (threadIdx.x == 0 && n == -1) out[0] = %s; return; }\n"
+_KEEP = "  if (d > 0) { if (threadIdx.x == 0 && d == -1) out[0] = %s; return; }\n"
 # (phase, the line it ends before, what it leaves behind)
 _CUTS = (
     ("empty", "  if (threadIdx.x < 64) {  // warp 0 the first diagonal", "0.f"),
@@ -75,7 +75,7 @@ def _build(tag: str, src: str):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {tag}:\n{res.stderr}")
     fn = ctypes.CDLL(str(so)).pf_resample_by_starts
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,7 +127,7 @@ def run(device, card: str = "") -> dict:
             def call(fn=fn, it=it, phase=phase):
                 k = next(it) % len(sets)
                 (p, starts), o = sets[k], outs[k]
-                err = fn(p.data_ptr(), starts.data_ptr(), o.data_ptr(), N, 1,
+                err = fn(p.data_ptr(), starts.data_ptr(), o.data_ptr(), N, N, 1, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"B2 {phase}: CUDA error {err}")

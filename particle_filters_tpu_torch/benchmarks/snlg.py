@@ -107,9 +107,10 @@ def _ukf(Z, Sigma, device):
         make_ukf_state(torch.zeros(d, device=device), Sigma, device=device), z)[1])(Z)
 
 
-def make_flow(kind: str, n_particles: int, Sigma, device):
+def make_flow(kind: str, n_particles: int, Sigma, device, group=None):
     """bench_snlg's flow filter of ``kind`` ("edh" | "ledh") with an EKF
-    tracker, and its process-noise sampler."""
+    tracker (on a rank of ``group`` when given), and its process-noise
+    sampler."""
     d = Sigma.shape[0]
     I = torch.eye(d, device=device)
     R = SZ**2 * I
@@ -122,10 +123,11 @@ def make_flow(kind: str, n_particles: int, Sigma, device):
             lambda z, x: mvn_logpdf_chol(z, x, LR), R)
     if kind == "edh":
         filt = EDHFlowPF(*args, EDHConfig(n_particles=n_particles, n_lambda_steps=4),
-                         device=device)
+                         device=device, group=group)
     else:
         filt = LEDHFlowPF(*args, LEDHConfig(n_particles=n_particles, n_lambda_steps=4,
-                                            resample_ess_ratio=0.5), device=device)
+                                            resample_ess_ratio=0.5), device=device,
+                          group=group)
 
     def noise(gen, n, nx):
         return torch.randn((n, nx), generator=gen, device=device) @ LQ.T

@@ -1,19 +1,25 @@
 // Kernel B2: systematic-resampled particle values from the sorted child-run
 // starts, by a merge-path load-balanced search.
 //
-// out[i, :] = p[j(i), :] with j(i) = max{j : starts[j] <= i}, where
-// starts[j] = ceil(N * cdf[j-1] - u) is the first output slot of ancestor j
-// (starts[0] = 0, nondecreasing, values in [0, N]). An ancestor with no
-// children shares its start with the next one, and the largest such j wins.
+// out[i, :] = p[j(i), :] with j(i) = max{j : starts[j] <= off + i} for the
+// n outputs i < n, over M starts and M rows of p, where starts[j] =
+// ceil(N * cdf[j-1] - u) is the first output slot of ancestor j
+// (nondecreasing, starts[0] <= off). An ancestor with no children shares its
+// start with the next one, and the largest such j wins. The whole cloud is
+// M = n, off = 0; a rank's slice of a sharded resample is its n outputs from
+// off = rank * n, over the gathered cloud (M = N) or over its neighbour pool
+// (M = (2r + 1) * n). Every start is read through min(max(s - off, 0), n),
+// which keeps the starts sorted, so the merge below is that of M clamped
+// starts with n outputs and the shift costs no pass of its own.
 //
 // Replaces particle_filters_tpu/ops/resample_pallas.py::_resample_kernel. The
-// function is ModernGPU's load-balancing search: merge the N starts with the
-// N output positions, a start j before output i when starts[j] <= i (ties
+// function is ModernGPU's load-balancing search: merge the M starts with the
+// n output positions, a start j before output i when starts[j] <= i (ties
 // take the start first, which is what makes zero-child ancestors come out
 // right); the ancestor of an output is the last start merged before it.
 //
 // What bounds it on the H100: bytes (12 MiB at N = 2^20, d = 1). A search
-// per output is 20 dependent L2 round trips; here the 2N merge items are cut
+// per output is 20 dependent L2 round trips; here the M + n merge items are cut
 // along merge-path diagonals into blocks of kItems, so every block does the
 // same work at any weight degeneracy (a block of a point mass holds only
 // starts, or only outputs of one ancestor), and:
@@ -50,6 +56,14 @@ constexpr int kProbes = 4;                     // search probes a lane a round
 constexpr int kWays = 32 * kProbes;            // search probes a round (one warp)
 constexpr int kBracket = 128;                  // candidates staged with the window
 
+// The starts as the merge sees them: shifted by off and clamped to [0, n].
+struct Starts {
+  const int* __restrict__ p;
+  int m, n, off;
+  __device__ __forceinline__ int at(int v) const { return min(max(v - off, 0), n); }
+  __device__ __forceinline__ int load(long long g) const { return at(__ldg(p + g)); }
+};
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
@@ -63,14 +77,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 // true then false over k, and the count c of true probes brackets the split
 // between grid[c - 1] + 1 and grid[c]. All lanes return the same bracket.
 template <typename Grid>
-__device__ __forceinline__ void search_round(const int* __restrict__ starts, long long d,
-                                             int& lo, int& hi, Grid grid) {
+__device__ __forceinline__ void search_round(const Starts& starts, long long d, int& lo,
+                                             int& hi, Grid grid) {
   const int lane = threadIdx.x & 31;
   int v[kProbes];
 #pragma unroll
   for (int r = 0; r < kProbes; ++r) {  // every load of the round in flight at once
     const long long g = grid(lane * kProbes + r);
-    v[r] = (g >= lo && g < hi) ? __ldg(starts + g) : 0;
+    v[r] = (g >= lo && g < hi) ? starts.load(g) : 0;
   }
   int c = 0;
 #pragma unroll
@@ -85,11 +99,12 @@ __device__ __forceinline__ void search_round(const int* __restrict__ starts, lon
 }
 
 // [lo, hi] brackets the split of diagonal d, hi - lo <= kBracket.
-__device__ __forceinline__ void bracket_split(const int* __restrict__ starts, int n,
-                                              long long d, int& lo, int& hi) {
+__device__ __forceinline__ void bracket_split(const Starts& starts, long long d, int& lo,
+                                              int& hi) {
+  const int n = starts.n, m = starts.m;
   lo = static_cast<int>(d > n ? d - n : 0);
-  hi = static_cast<int>(d < n ? d : n);
-  const long long step = (n + kWays - 1) / kWays;
+  hi = static_cast<int>(d < m ? d : m);
+  const long long step = (m + kWays - 1) / kWays;
   search_round(starts, d, lo, hi, [=](int k) { return k * step; });
   while (hi - lo > kBracket) {  // one more round at N = 2^20
     const long long base = lo;
@@ -99,11 +114,11 @@ __device__ __forceinline__ void bracket_split(const int* __restrict__ starts, in
 }
 
 // The split of diagonal d in [lo, hi], from win[a - base] = starts[a].
-__device__ __forceinline__ int split_in(const int* win, int base, long long d, int lo,
-                                        int hi) {
+__device__ __forceinline__ int split_in(const Starts& starts, const int* win, int base,
+                                        long long d, int lo, int hi) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (win[mid - base] <= d - 1 - mid) {
+    if (starts.at(win[mid - base]) <= d - 1 - mid) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -124,8 +139,8 @@ __device__ __forceinline__ float ancestor_value(const float* __restrict__ p,
 }
 
 __global__ void __launch_bounds__(kThreads)
-merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ starts,
-                           float* __restrict__ out, int n, int d) {
+merge_path_resample_kernel(const float* __restrict__ p, const Starts starts,
+                           float* __restrict__ out, int d) {
   // starts[base, wend) from a 16-byte boundary: the brackets and the block's starts.
   __shared__ __align__(16) int win[kItems + 2 * kBracket + 8];
   // The marks, then the ancestor of each of the block's outputs (padded).
@@ -134,12 +149,13 @@ merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ 
   __shared__ int warp_max[kThreads / 32];
   static_assert(kPerThread == 16, "a thread's marks are one padded row of 16");
 
+  const int m = starts.m;
   const long long d0 = static_cast<long long>(blockIdx.x) * kItems;
-  const long long d1 = min(d0 + kItems, 2LL * n);
+  const long long d1 = min(d0 + kItems, static_cast<long long>(m) + starts.n);
   if (threadIdx.x < 64) {  // warp 0 the first diagonal, warp 1 the second
     const int w = threadIdx.x >> 5;
     int lo, hi;
-    bracket_split(starts, n, w == 0 ? d0 : d1, lo, hi);
+    bracket_split(starts, w == 0 ? d0 : d1, lo, hi);
     if ((threadIdx.x & 31) == 0) {
       bracket[2 * w] = lo;
       bracket[2 * w + 1] = hi;
@@ -152,8 +168,8 @@ merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ 
   const int base = min(bracket[0], bracket[2]) & ~3;
   const int wend = max(bracket[1], bracket[3]);
   for (int v = threadIdx.x; 4 * v < wend - base; v += kThreads) {
-    const int g = base + 4 * v;  // g < wend <= n
-    cp_async16(win + 4 * v, starts + g, 4 * min(4, n - g));
+    const int g = base + 4 * v;  // g < wend <= m
+    cp_async16(win + 4 * v, starts.p + g, 4 * min(4, m - g));
   }
   asm volatile("cp.async.commit_group;\n" ::);
   int4* my_marks = reinterpret_cast<int4*>(anc + padded(threadIdx.x * kPerThread));
@@ -161,8 +177,8 @@ merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ 
   for (int q = 0; q < kPerThread / 4; ++q) my_marks[q] = make_int4(-1, -1, -1, -1);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  const int a0 = split_in(win, base, d0, bracket[0], bracket[1]);
-  const int a1 = split_in(win, base, d1, bracket[2], bracket[3]);
+  const int a0 = split_in(starts, win, base, d0, bracket[0], bracket[1]);
+  const int a1 = split_in(starts, win, base, d1, bracket[2], bracket[3]);
   const int b0 = static_cast<int>(d0 - a0);
   const int b1 = static_cast<int>(d1 - a1);
   const int nb = b1 - b0;
@@ -170,8 +186,10 @@ merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ 
 
   // Scatter: the last start of each run marks its output.
   for (int j = a0 + threadIdx.x; j < a1; j += kThreads) {
-    const int sj = win[j - base];  // sj >= b0 for j >= a0
-    if (sj < b1 && (j + 1 == a1 || win[j + 1 - base] != sj)) anc[padded(sj - b0)] = j;
+    const int sj = starts.at(win[j - base]);  // sj >= b0 for j >= a0
+    if (sj < b1 && (j + 1 == a1 || starts.at(win[j + 1 - base]) != sj)) {
+      anc[padded(sj - b0)] = j;
+    }
   }
   __syncthreads();
 
@@ -243,13 +261,15 @@ merge_path_resample_kernel(const float* __restrict__ p, const int* __restrict__ 
 
 }  // namespace
 
-extern "C" int pf_resample_by_starts(const float* p, const int* starts, float* out, int n,
-                                     int d, void* stream) {
+extern "C" int pf_resample_by_starts(const float* p, const int* starts, float* out, int m,
+                                     int n, int d, int off, void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  if (n > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long items = 2LL * n;
+  if (m <= 0 || m > (1 << 30) || n > (1 << 30) || off < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long items = static_cast<long long>(m) + n;
   const int blocks = static_cast<int>((items + kItems - 1) / kItems);
   merge_path_resample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, starts, out, n, d);
+      p, Starts{starts, m, n, off}, out, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,11 @@ arrays, into this package's, so both packages can start from one state.
   ``examples/09_train_rnn_resampler.py`` writes, loads into an
   ``RNNResampler``; :func:`rnn_params_to_jax` gives the pytree back.
 
+- :func:`sharded_state_from_jax` cuts a global ``PFState``,
+  ``FlowPFState`` or fused carry to rank r's slice of S (the fused carry
+  along its lanes: the (nx, N) layout's columns), so a sharded run starts
+  from the JAX package's global cloud.
+
 :func:`to_numpy` goes back: a state's fields as numpy arrays.
 """
 
@@ -85,6 +90,24 @@ def state_from_jax(state, *, device="cuda"):
             _t(off_u, device),
         )
     return _fields_from(_STATES.get(type(state).__name__, PFState), state, device)
+
+
+def sharded_state_from_jax(state, rank: int, ranks: int, *, device="cuda"):
+    """Rank ``rank``'s slice of ``ranks`` of a global JAX state, as
+    :func:`state_from_jax` gives it: a ``PFState`` or ``FlowPFState`` cut
+    along the particles (moments and diagnostics whole), a fused carry
+    along the lanes (``off_u`` whole)."""
+    full = state_from_jax(state, device=device)
+    n = (full[1] if isinstance(full, tuple) else full.log_weights).shape[0]
+    if n % ranks:
+        raise ValueError(f"{n} particles must divide over {ranks} ranks.")
+    rows = slice(rank * (n // ranks), (rank + 1) * (n // ranks))
+    if isinstance(full, tuple):
+        particles, logw, off_u = full
+        return particles[..., rows].contiguous(), logw[rows].contiguous(), off_u
+    cut = {"particles", "weights", "log_weights"}
+    return dataclasses.replace(full, **{f.name: getattr(full, f.name)[rows].contiguous()
+                                        for f in dataclasses.fields(full) if f.name in cut})
 
 
 def to_numpy(state) -> dict:

@@ -21,7 +21,21 @@ resampled together in ONE launch of kernel B2 on the card
 (``resampling.hard.systematic_resample_values_batched``). ``step`` and
 ``run`` are its one-trial case.
 
-The sharded ``axis_name`` arguments are not ported.
+With ``group`` (a ``torch.distributed`` process group, the counterpart of
+the JAX package's ``axis_name``) the particles are split over the group's
+ranks: the flow and the weight correction stay per rank (the tracker is
+replicated), while the normalization, the trigger, the ESS, the moments and
+the resample, which need collectives, run outside the ``vmap`` over
+trials: the global log-normalizer, the global ESS read on the host (the
+same bits on every rank), the all-gather systematic resample with B2
+writing the rank's slice, or the neighbour exchange
+(``parallel/distributed_resample.py``; the history's ``exchange_ok``, True
+for a trial-step whose pool sufficed or that did not resample, as the JAX
+package's ``ParticleFilter`` records it), and LEDH's condition number as
+the max over the ranks' first particles. The
+initial cloud is the one-device draw from the replicated generator, each
+rank keeping its rows; the process noise comes from each rank's own
+generator, seeded from one draw of the replicated one and the rank.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core.linalg import (
     chol_solve,
     chol_with_jitter,
@@ -105,8 +120,18 @@ class _FlowPF:
 
     def __init__(self, tracker: GaussianTracker, g: Callable, h: Callable,
                  jacobian_h: Callable, log_trans_pdf: Callable, log_like_pdf: Callable,
-                 R, config, device="cuda") -> None:
+                 R, config, device="cuda", group=None, distributed_resample="all_gather",
+                 neighbor_radius: int = 2) -> None:
+        if distributed_resample not in ("all_gather", "neighbor"):
+            raise ValueError("distributed_resample must be 'all_gather' or 'neighbor'.")
         self.device = torch.device(device)
+        self.group = group
+        self.distributed_resample = distributed_resample
+        self.neighbor_radius = int(neighbor_radius)
+        self.rank, self.ranks = (0, 1) if group is None else (comm.rank(group), comm.size(group))
+        if config.n_particles % self.ranks:
+            raise ValueError(f"n_particles={config.n_particles} must divide over "
+                             f"{self.ranks} ranks.")
         self.tracker = tracker
         self.g = g
         self.h = h
@@ -118,7 +143,8 @@ class _FlowPF:
         self.LR = chol_with_jitter(self.R, initial=1e-10)
 
     def init_from_gaussian(self, generator, mean0, cov0) -> FlowPFState:
-        """Particles ~ N(mean0, cov0), uniform weights."""
+        """Particles ~ N(mean0, cov0), uniform weights (with ``group``, this
+        rank's rows of that cloud, and its global moments)."""
         mean0 = as_f32(mean0, self.device)
         L = chol_with_jitter(as_f32(cov0, self.device))
         n = self.cfg.n_particles
@@ -126,6 +152,9 @@ class _FlowPF:
         particles = mean0 + eps @ L.T
         logw = uniform_logw(n, device=self.device)
         mean, cov = weighted_mean_cov(particles, logw)
+        if self.group is not None:
+            rows = slice(self.rank * (n // self.ranks), (self.rank + 1) * (n // self.ranks))
+            particles, logw = particles[rows], logw[rows]
         return FlowPFState(
             particles=particles, weights=torch.exp(logw), log_weights=logw, mean=mean,
             cov=cov,
@@ -136,10 +165,11 @@ class _FlowPF:
         )
 
     # --- the pure part of a step (vmappable over trials) ---------------------
-    def _advance(self, particles, log_weights, ts: TrackerState, z, v, u=None, **flow_kw):
+    def _advance(self, particles, log_weights, ts: TrackerState, z, v, u=None,
+                 normalize=True, **flow_kw):
         """Tracker predict, propagation with the given noise ``v``, the flow,
         the weight correction and the tracker update: ``(x, logw, conds, ts)``
-        before any resample."""
+        before any resample (``logw`` not normalized unless ``normalize``)."""
         ts, _, P = self.tracker.predict(ts, u=u)
         P = symmetrize(P)
         eta0 = torch.func.vmap(lambda x, vi: self.g(x, u, vi))(particles, v)
@@ -151,7 +181,9 @@ class _FlowPF:
         )(xk, particles, eta0)
         if theta_log is not None:
             log_weights = log_weights + theta_log
-        logw, _ = log_normalize(log_weights + log_corr)
+        logw = log_weights + log_corr
+        if normalize:
+            logw, _ = log_normalize(logw)
         ts, _, _ = self.tracker.update(ts, z)
         return xk, logw, conds, ts
 
@@ -163,10 +195,50 @@ class _FlowPF:
         mean, cov = weighted_mean_cov(particles, logw)
         return mean, symmetrize(cov)
 
+    def _sharded_moments(self, p, lw):
+        mc = [weighted_mean_cov(x, w, self.group) for x, w in zip(p, lw)]
+        return torch.stack([m for m, _ in mc]), symmetrize(torch.stack([c for _, c in mc]))
+
+    def _sharded_ess(self, lw):
+        return torch.stack([ess_from_logw(w, self.group) for w in lw])
+
     def _noise(self, generator, sampler, n, nx):
         if sampler is None:
             return torch.zeros((n, nx), device=self.device)
         return as_f32(sampler(generator, n, nx), self.device)
+
+    def _sharded_weights(self, lw, conds):
+        """With a group, per trial: the global normalization, the trigger,
+        and the condition numbers' max over the ranks."""
+        lw = torch.stack([log_normalize(w, self.group)[0] for w in lw])
+        n_total = lw.shape[-1] * self.ranks
+        trig = torch.stack([ess_from_logw(w, self.group) < self.cfg.resample_ess_ratio * n_total
+                            for w in lw])
+        return lw, trig, comm.pmax(conds, self.group)
+
+    def _sharded_resample(self, generator, p, lw, sel):
+        """Each triggered trial's resample, its u drawn as the one-device
+        path draws them (one call for all), B2 writing this rank's slice:
+        ``(values, ok)``, ``ok`` (per triggered trial) False where a
+        neighbour pool did not suffice."""
+        from particle_filters_tpu_torch.parallel.distributed_resample import (
+            all_gather_systematic_resample,
+            neighbor_exchange_systematic_resample,
+        )
+        from particle_filters_tpu_torch.resampling.hard import _uniform
+
+        u = _uniform(generator, (sel.numel(),), lw)
+        vals, oks = [], []
+        for k, b in enumerate(sel.tolist()):
+            if self.distributed_resample == "neighbor":
+                v, ok = neighbor_exchange_systematic_resample(
+                    None, p[b], lw[b], group=self.group, radius=self.neighbor_radius, u=u[k])
+            else:
+                v, ok = all_gather_systematic_resample(None, p[b], lw[b], group=self.group,
+                                                       u=u[k])[0], True
+            vals.append(v)
+            oks.append(ok)
+        return torch.stack(vals), torch.tensor(oks, device=self.device)
 
     # --- one trial: the driver below at B = 1 ------------------------------
     def step(self, generator, state: FlowPFState, tracker_state: TrackerState, z, u=None,
@@ -184,7 +256,9 @@ class _FlowPF:
             process_noise_sampler: Optional[Callable] = None, **flow_kw):
         """Filter a (T, nz) sequence: the final (state, tracker_state) and
         the stacked history (mean, cov, ess after any resample, resampled,
-        condition_numbers), the JAX package's schema."""
+        condition_numbers), the JAX package's schema, and ``exchange_ok``
+        (False on a step whose neighbour pool did not suffice, with a
+        group in neighbour mode)."""
         zs = as_f32(zs, self.device)[None]
         st, ts, hist = self._run_trials(generator, stack_states([state0]),
                                         stack_states([tracker_state0]), zs, None,
@@ -213,30 +287,45 @@ class _FlowPF:
         n, nx = p.shape[1:]
         ts = state_fields(tracker_states)
 
+        sharded = self.group is not None
+
         def advance(p, lw, ts, z, v):
-            xk, logw, conds, ts = self._advance(p, lw, TrackerState(*ts), z, v, u, **flow_kw)
+            xk, logw, conds, ts = self._advance(p, lw, TrackerState(*ts), z, v, u,
+                                                normalize=not sharded, **flow_kw)
             return xk, logw, conds, state_fields(ts)
 
         advance = torch.func.vmap(advance)
         moments = torch.func.vmap(self._moments)
+        ess = torch.func.vmap(ess_from_logw)
+        if sharded:
+            moments, ess = self._sharded_moments, self._sharded_ess
+        noise_gen = None if sampler is None else comm.rank_stream(generator, self.group,
+                                                                   self.device)
         rows = []
         for k in range(T):
-            v = self._noise(generator, sampler, B * n, nx).view(B, n, nx)
+            v = self._noise(noise_gen, sampler, B * n, nx).view(B, n, nx)
             p, lw, conds, ts = advance(p, lw, ts, zs[:, k], v)
             trig = torch.zeros(B, dtype=torch.bool, device=self.device)
+            ok = torch.ones(B, dtype=torch.bool, device=self.device)
+            if sharded:
+                lw, trig_g, conds = self._sharded_weights(lw, conds)
             if self.cfg.resample_ess_ratio > 0.0:
-                trig = torch.func.vmap(self._trigger)(lw)
+                trig = trig_g if sharded else torch.func.vmap(self._trigger)(lw)
                 sel = torch.nonzero(trig)[:, 0]  # the step's one host sync
-                if sel.numel():
+                if sel.numel() and sharded:
+                    vals, oks = self._sharded_resample(generator, p, lw, sel)
+                    p, ok = p.index_copy(0, sel, vals), ok.index_copy(0, sel, oks)
+                elif sel.numel():
                     p = p.index_copy(0, sel, systematic_resample_values_batched(
                         generator, p[sel], logw=lw[sel]))
-                    lw = lw.index_fill(0, sel, -math.log(n))
+                if sel.numel():
+                    lw = lw.index_fill(0, sel, -math.log(n * self.ranks))
             mean, cov = moments(p, lw)
             st = FlowPFState(particles=p, weights=torch.exp(lw), log_weights=lw, mean=mean,
                              cov=cov, diagnostics={"condition_numbers": conds,
                                                    "resampled": trig})
-            rows.append({"mean": mean, "cov": cov, "ess": torch.func.vmap(ess_from_logw)(lw),
-                         "resampled": trig, "condition_numbers": conds})
+            rows.append({"mean": mean, "cov": cov, "ess": ess(lw), "resampled": trig,
+                         "condition_numbers": conds, "exchange_ok": ok})
         hist = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
         return st, TrackerState(*ts), hist
 
@@ -248,13 +337,18 @@ class EDHFlowPF(_FlowPF):
     x_km1)``, ``log_like_pdf(z, x)`` act on one particle; ``R`` is the
     observation covariance and ``tracker`` a
     :class:`~particle_filters_tpu_torch.models.trackers.GaussianTracker`.
-    Tensors live on ``device`` (the card unless ``device="cpu"``).
+    Tensors live on ``device`` (the card unless ``device="cpu"``); with
+    ``group`` the filter runs on one rank of it (the module's note), its
+    resample by ``distributed_resample`` (``"all_gather"`` | ``"neighbor"``,
+    with ``neighbor_radius``), as ``ParticleFilter``'s.
     """
 
     def __init__(self, tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
-                 config: Optional[EDHConfig] = None, device="cuda") -> None:
+                 config: Optional[EDHConfig] = None, device="cuda", group=None,
+                 distributed_resample: str = "all_gather", neighbor_radius: int = 2) -> None:
         super().__init__(tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
-                         config or EDHConfig(), device)
+                         config or EDHConfig(), device, group, distributed_resample,
+                         neighbor_radius)
 
     def _flow_matrices(self, lam, etabar, P, z):
         """A(λ), b(λ) and cond(S) at the linearization point ``etabar``."""

@@ -9,7 +9,9 @@ two factorizations are one single-shot Cholesky of a stacked (2, nx, nx)
 pair per particle — under the particle ``torch.func.vmap`` one batched
 ``cholesky_ex`` over (N, 2, nx, nx) — and the log-dets come from their
 diagonals. The steps, runs and batched trials are those of
-:class:`~particle_filters_tpu_torch.models.edh_particle_filter._FlowPF`.
+:class:`~particle_filters_tpu_torch.models.edh_particle_filter._FlowPF`,
+with a process group too (its condition number then the max over the
+ranks' first particles, as the JAX package's ``pmax``).
 """
 
 from __future__ import annotations
@@ -70,9 +72,11 @@ class LEDHFlowPF(_FlowPF):
     the uniform λ grid (flow at β_k with Euler increments β_{k+1} − β_k)."""
 
     def __init__(self, tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
-                 config: Optional[LEDHConfig] = None, device="cuda") -> None:
+                 config: Optional[LEDHConfig] = None, device="cuda", group=None,
+                 distributed_resample: str = "all_gather", neighbor_radius: int = 2) -> None:
         super().__init__(tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
-                         config or LEDHConfig(), device)
+                         config or LEDHConfig(), device, group, distributed_resample,
+                         neighbor_radius)
         self.R_inv = chol_solve(self.LR, torch.eye(self.R.shape[0], device=self.device))
 
     def _per_particle_flow(self, lam, dlam, one_minus_c, eta_i, etabar_i, eta0_i, P, P_inv,

@@ -13,22 +13,36 @@ version on a CPU tensor. ``run`` is a Python loop over the steps; with
 between them (``utils.checkpoint``), the generator's state included, and
 resumes from the last one.
 
-Not ported yet: the sharded ``axis_name`` arguments.
+With ``group`` (a ``torch.distributed`` process group, the counterpart of
+the JAX package's ``axis_name``) the N = ``Np`` particles are split over
+the group's ranks, n = N/S a rank: normalization, ESS and moments are
+global (``core.weights`` with the group), the trigger is read from the
+global ESS, the same bits on every rank, and the resample is the global
+systematic one, by ``distributed_resample``: ``"all_gather"`` (the whole
+cloud gathered, B2 writing the rank's slice) or ``"neighbor"`` (the ±
+``neighbor_radius`` ranks' particles only, with an exact all-gather rescue
+flagged ``exchange_ok = False``; see ``parallel/distributed_resample.py``).
+Two random streams: the generator passed in is the replicated one (seeded
+alike on every rank: it draws the resample's u, the same on every rank,
+and one seed a call for the other stream), and each rank draws its initial
+cloud and its propagation noise from a generator of its own, seeded from
+that seed and the rank.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Callable, Optional
 
 import torch
 
+from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core.linalg import chol_with_jitter
 from particle_filters_tpu_torch.core.structs import PFState, as_f32
 from particle_filters_tpu_torch.core.weights import (
     ess_from_logw,
     log_normalize,
-    uniform_logw,
     weighted_mean_cov,
 )
 from particle_filters_tpu_torch.resampling.hard import (
@@ -68,8 +82,26 @@ class ParticleFilter:
         resample_method: str = "systematic",
         regularize_after_resample: bool = False,
         obs_loglik: Optional[Callable] = None,
+        group=None,
+        distributed_resample: str = "all_gather",
+        neighbor_radius: int = 2,
         device="cuda",
     ) -> None:
+        """With ``group`` the filter runs on one rank of it: ``Np`` is the
+        global count and must divide over the ranks; ``initialize`` and
+        ``run`` hold this rank's n = Np/S particles."""
+        if distributed_resample not in ("all_gather", "neighbor"):
+            raise ValueError("distributed_resample must be 'all_gather' or 'neighbor'.")
+        if distributed_resample == "neighbor" and resample_method != "systematic":
+            raise ValueError(
+                "neighbor-exchange resampling requires resample_method="
+                "'systematic' (its ancestry is a contiguous inverse-CDF).")
+        self.group = group
+        self.n_shards = 1 if group is None else comm.size(group)
+        if int(Np) % self.n_shards:
+            raise ValueError(f"Np={Np} must divide over {self.n_shards} ranks.")
+        self.distributed_resample = distributed_resample
+        self.neighbor_radius = int(neighbor_radius)
         self.device = torch.device(device)
         self.g = g
         self.h = h
@@ -102,26 +134,35 @@ class ParticleFilter:
     # -------------------- initialization & diagnostics --------------------
 
     def initialize(self, generator, mean, cov) -> PFState:
-        """Particles ~ N(mean, cov), uniform weights."""
+        """Particles ~ N(mean, cov), uniform weights (this rank's slice,
+        from its own stream, with ``group``)."""
         mean = as_f32(mean, self.device).reshape(-1)
         cov = torch.atleast_2d(as_f32(cov, self.device))
         Lc = chol_with_jitter(cov, initial=1e-10)
-        eps = torch.randn(
-            (self.Np, mean.shape[0]), generator=generator, device=self.device
-        )
+        n = self.Np // self.n_shards
+        eps = torch.randn((n, mean.shape[0]), generator=self._local(generator),
+                          device=self.device)
         return PFState(
             particles=eps @ Lc.T + mean,
-            log_weights=uniform_logw(self.Np, device=self.device),
+            log_weights=self._uniform_logw(n),
             mean=mean,
             cov=cov,
             t=torch.zeros((), dtype=torch.int32, device=self.device),
         )
 
     def effective_sample_size(self, state: PFState) -> torch.Tensor:
-        """Neff = 1/Σw²."""
-        return ess_from_logw(state.log_weights)
+        """Neff = 1/Σw² (global with ``group``)."""
+        return ess_from_logw(state.log_weights, self.group)
 
     # ------------------------------ core ops ------------------------------
+
+    def _local(self, generator):
+        """This rank's stream (``core.comm.rank_stream``)."""
+        return comm.rank_stream(generator, self.group, self.device)
+
+    def _uniform_logw(self, n: int) -> torch.Tensor:
+        """−log N_global on this rank's n particles."""
+        return torch.full((n,), -math.log(n * self.n_shards), device=self.device)
 
     def _propagate(self, particles, eps, u=None):
         """vmapped g plus correlated noise ``eps @ Lqᵀ`` for given normals."""
@@ -129,7 +170,11 @@ class ParticleFilter:
         return prop + eps @ self.Lq.T
 
     def predict(self, generator, state: PFState, u=None) -> torch.Tensor:
-        """Propagate all particles: vmapped g + correlated Gaussian noise."""
+        """Propagate all particles: vmapped g + correlated Gaussian noise
+        (from this rank's stream with ``group``)."""
+        return self._predict(self._local(generator), state, u)
+
+    def _predict(self, generator, state: PFState, u=None) -> torch.Tensor:
         p = state.particles
         eps = torch.randn(p.shape, generator=generator, dtype=p.dtype, device=p.device)
         return self._propagate(p, eps, u)
@@ -145,49 +190,76 @@ class ParticleFilter:
         idx = resample_indices(self.resample_method, generator, logw=lw)
         return p[idx.long()], idx
 
-    def _maybe_resample(self, generator, particles, logw):
+    def _resample_sharded(self, generator, p, lw):
+        """This rank's slice of the global resample: ``(values, ok)``."""
+        from particle_filters_tpu_torch.parallel.distributed_resample import (
+            all_gather_systematic_resample,
+            neighbor_exchange_systematic_resample,
+        )
+
+        if self.distributed_resample == "neighbor":
+            return neighbor_exchange_systematic_resample(
+                generator, p, lw, group=self.group, radius=self.neighbor_radius)
+        if self.resample_method == "systematic":
+            return all_gather_systematic_resample(generator, p, lw, group=self.group)[0], True
+        n, r = p.shape[0], comm.rank(self.group)
+        idx = resample_indices(self.resample_method, generator,
+                               logw=comm.all_gather_cat(lw, self.group))
+        return comm.all_gather_cat(p, self.group)[idx[r * n:(r + 1) * n].long()], True
+
+    def _maybe_resample(self, generator, particles, logw, local):
         """ESS-triggered resample; the branch runs on the host. Also returns
-        the resample's ancestry (None on a step without one)."""
-        ess = ess_from_logw(logw)
-        trigger = bool(ess < self.resample_thresh * particles.shape[0])
-        ancestry = None
+        the resample's ancestry (None on a step without one, and with
+        ``group``) and whether a neighbour pool sufficed. ``local`` (this
+        rank's stream) draws the jitter."""
+        ess = ess_from_logw(logw, self.group)
+        trigger = bool(ess < self.resample_thresh * particles.shape[0] * self.n_shards)
+        ancestry, ok = None, True
         if trigger:
-            particles, ancestry = self._resample_values(generator, particles, logw)
+            if self.group is None:
+                particles, ancestry = self._resample_values(generator, particles, logw)
+            else:
+                particles, ok = self._resample_sharded(generator, particles, logw)
             if self.regularize_after_resample:
                 jitter = torch.randn(
-                    particles.shape, generator=generator,
-                    dtype=particles.dtype, device=particles.device,
+                    particles.shape, generator=local, dtype=particles.dtype,
+                    device=particles.device,
                 )
                 particles = particles + jitter @ (0.001 * self.Lq.T)
-            logw = uniform_logw(particles.shape[0], logw.dtype, logw.device)
-        return particles, logw, ess, trigger, ancestry
+            logw = self._uniform_logw(particles.shape[0])
+        return particles, logw, ess, trigger, ancestry, ok
 
     def update(self, generator, state: PFState, z, particles=None,
                return_diagnostics: bool = False):
         """Log-weight update + conditional resample + posterior moments.
         ``particles`` defaults to ``state.particles`` (call after
         ``predict``). With ``return_diagnostics`` returns ``(state, diag)``
-        with ``ess``, ``resampled`` and ``exchange_ok`` (always True here)."""
-        new, diag, _ = self._update(generator, state, z, particles)
+        with ``ess``, ``resampled`` and ``exchange_ok`` (False where a
+        neighbour pool did not suffice)."""
+        new, diag, _ = self._update(generator, state, z, particles, local=self._local(generator))
         if return_diagnostics:
             return new, diag
         return new
 
-    def _update(self, generator, state, z, particles=None, track_degeneracy=False):
+    def _update(self, generator, state, z, particles=None, track_degeneracy=False,
+                local=None):
+        """The step after the prediction; ``local`` (this rank's stream,
+        ``generator`` when None) draws the regularization jitter."""
         z = as_f32(z, self.device)
         if particles is None:
             particles = state.particles
         # log_z: the incremental marginal likelihood log p(z_t | z_{1:t-1})
         # up to the constant the Gaussian path drops.
-        logw_pre, log_z = log_normalize(state.log_weights + self._loglik(particles, z))
-        particles, logw, ess, trig, ancestry = self._maybe_resample(
-            generator, particles, logw_pre)
-        mean, cov = weighted_mean_cov(particles, logw)
+        logw_pre, log_z = log_normalize(state.log_weights + self._loglik(particles, z),
+                                        self.group)
+        particles, logw, ess, trig, ancestry, ok = self._maybe_resample(
+            generator, particles, logw_pre, generator if local is None else local)
+        mean, cov = weighted_mean_cov(particles, logw, self.group)
         new = PFState(
             particles=particles, log_weights=logw, mean=mean, cov=cov,
             t=state.t + 1,
         )
-        diag = {"ess": ess, "resampled": trig, "exchange_ok": True}
+        diag = {"ess": ess, "resampled": trig, "exchange_ok": ok}
         if track_degeneracy:
             diag.update(self._degeneracy(logw_pre, ancestry))
         return new, diag, log_z
@@ -209,11 +281,10 @@ class ParticleFilter:
     def step(self, generator, state: PFState, z, u=None,
              return_diagnostics: bool = False):
         """Predict then update. See ``update`` for ``return_diagnostics``."""
-        particles = self.predict(generator, state, u)
-        return self.update(
-            generator, state, z, particles=particles,
-            return_diagnostics=return_diagnostics,
-        )
+        local = self._local(generator)
+        new, diag, _ = self._update(generator, state, z, self._predict(local, state, u),
+                                    local=local)
+        return (new, diag) if return_diagnostics else new
 
     def run(self, generator, state0: PFState, zs, us=None, *,
             track_degeneracy: bool = False):
@@ -226,25 +297,31 @@ class ParticleFilter:
         pre-resample weights, and ``unique_frac``, the fraction of ancestors
         that survive the step's resample (1.0 on steps without one). The
         panel draws nothing from ``generator``: the rest of the run is the
-        same with it or without.
+        same with it or without. It reads the local weight vector, so it is
+        not defined with ``group``.
         """
+        if track_degeneracy and self.group is not None:
+            raise ValueError("track_degeneracy reads the local weight vector and is not "
+                             "defined for sharded (group) runs.")
         zs = as_f32(zs, self.device)
+        local = self._local(generator)
         state = state0
         keys = ("mean", "cov", "ess", "log_evidence") + (_PANEL if track_degeneracy else ())
         hist = {k: [] for k in keys}
-        triggers = []
+        triggers, oks = [], []
         for t in range(zs.shape[0]):
             u = None if us is None else us[t]
-            particles = self.predict(generator, state, u)
+            particles = self._predict(local, state, u)
             state, diag, log_z = self._update(generator, state, zs[t], particles,
-                                              track_degeneracy)
+                                              track_degeneracy, local)
             row = {"mean": state.mean, "cov": state.cov, "log_evidence": log_z, **diag}
             for k in keys:
                 hist[k].append(row[k])
             triggers.append(diag["resampled"])
-        resampled = torch.tensor(triggers, dtype=torch.bool, device=self.device)
+            oks.append(diag["exchange_ok"])
         out = {k: torch.stack(v) for k, v in hist.items()}
-        out.update(resampled=resampled, exchange_ok=torch.ones_like(resampled))
+        out.update(resampled=torch.tensor(triggers, dtype=torch.bool, device=self.device),
+                   exchange_ok=torch.tensor(oks, dtype=torch.bool, device=self.device))
         return state, out
 
     def run_chunked(self, generator, state0: PFState, zs, us=None, *, chunk_size: int,
@@ -278,6 +355,9 @@ class ParticleFilter:
             raise ValueError("resume=True requires ckpt_dir.")
         if zs.shape[0] == 0:
             raise ValueError("zs must contain at least one observation.")
+        if ckpt_dir is not None and self.group is not None:
+            raise ValueError("run_chunked checkpoints one device's state; with a group, "
+                             "run the pieces without ckpt_dir.")
         from particle_filters_tpu_torch.utils.checkpoint import (
             latest_step,
             restore_checkpoint,

@@ -30,7 +30,10 @@ log-weight (4 B) and writes both back, 16 B at nx = 1. The design:
   contiguous particles.
 - Four normals per Philox call: one Philox4x32-10 call (``tl.randint4x``,
   the call ``tl.randn4x`` makes) keyed on (step seed, global quarter index)
-  gives two uniform pairs, and both Box-Muller outputs of each pair are
+  gives two uniform pairs (on a rank of a sharded filter the tile index and
+  the quarter count are global: the shard's first tile ``tile0`` and the
+  whole cloud's ``nq``, so S ranks draw the normals one launch over all N
+  particles would, where each rank's count is a multiple of the tile), and both Box-Muller outputs of each pair are
   used: the tile's four quarters take one normal each. Triton's ``tl.randn``
   spends one Philox call on every normal. The Box-Muller transform runs on
   the card's approximate ``lg2``/``sin``/``cos`` (``.approx.ftz.f32``,
@@ -177,7 +180,7 @@ def _exx_tile(xa, ea, xb, eb, xc, ec, xd, ed, rows, ri,
 def _fused_step_kernel(
     x_ptr, lw_ptr, z_ptr, off_ptr, lq_ptr, p_ptr, eps_ptr,
     x_out_ptr, lw_out_ptr, part_ptr, row_ptr, carry_ptr, trig_ptr, count_ptr,
-    seed, n, n_tiles, log_n, thresh_n,
+    seed, n, n_tiles, tile0, nq, log_n, thresh_n,
     NX: tl.constexpr, NXP: tl.constexpr, Q: tl.constexpr, PART_W: tl.constexpr,
     NXXP: tl.constexpr, FINISH: tl.constexpr, G: tl.constexpr,
     OBS_LL: tl.constexpr, READ_EPS: tl.constexpr,
@@ -187,7 +190,7 @@ def _fused_step_kernel(
     rows = tl.arange(0, NXP)[:, None]
     ri = tl.arange(0, NXP)
     lanes = tl.arange(0, Q)
-    nq = n_tiles * Q  # Philox offsets per state row: one per (tile, lane)
+    # Philox offsets per state row: one per (global tile, lane), nq a row.
     off = tl.load(off_ptr)
     uniform = tl.load(off_ptr + 1)
 
@@ -214,7 +217,7 @@ def _fused_step_kernel(
             e0, e1, e2, e3 = ea_n, eb_n, ec_n, ed_n
             ea_n, eb_n, ec_n, ed_n = _load_eps_tile(eps_ptr, rows, nxt, n, Q, NX)
         else:  # one Philox call, four normals: one per quarter
-            e0, e1, e2, e3 = _randn4(seed, rows * nq + tile * Q + lanes[None, :])
+            e0, e1, e2, e3 = _randn4(seed, rows * nq + (tile0 + tile) * Q + lanes[None, :])
         xa, la = _propagate(xa, la, e0, ca, rows, n, z_ptr, lq_ptr, p_ptr, off, uniform,
                             log_n, NX, G, OBS_LL)
         xb, lb = _propagate(xb, lb, e1, ca + Q, rows, n, z_ptr, lq_ptr, p_ptr, off, uniform,
@@ -325,10 +328,14 @@ def finish_rows(nx: int) -> int:
 
 
 def launch(x, lw, off_u, z, lq, params, eps, model, seed, thresh_n,
-           x_out, lw_out, row_out, carry_out, trigger, counter, part, programs):
+           x_out, lw_out, row_out, carry_out, trigger, counter, part, programs,
+           shard=(0, 1)):
     """Enqueue one B1 launch on the current stream of ``x``'s device, on at
-    most ``programs`` programs (``part`` holds a row for each)."""
+    most ``programs`` programs (``part`` holds a row for each), as rank
+    ``shard[0]`` of ``shard[1]`` of a cloud of ``shard[1]·N`` particles.
+    Returns the number of programs launched (the partials rows written)."""
     nx, n = x.shape
+    rank, ranks = shard
     q = quarter(nx)
     n_tiles = triton.cdiv(n, 4 * q)
     grid = (min(n_tiles, programs),)
@@ -336,12 +343,14 @@ def launch(x, lw, off_u, z, lq, params, eps, model, seed, thresh_n,
         _fused_step_kernel[grid](
             x, lw, z, off_u, lq, params, x if eps is None else eps,
             x_out, lw_out, part, row_out, carry_out, trigger, counter,
-            seed, n, n_tiles, math.log(n), thresh_n,
+            seed, n, n_tiles, rank * n_tiles, ranks * n_tiles * q, math.log(n * ranks),
+            thresh_n,
             NX=nx, NXP=triton.next_power_of_2(nx), Q=q, PART_W=part.shape[1],
             NXXP=triton.next_power_of_2(nx * nx), FINISH=finish_rows(nx),
             G=model.g_tl, OBS_LL=model.obs_loglik_tl, READ_EPS=eps is not None,
             num_warps=NUM_WARPS,
         )
+    return grid[0]
 
 
 # --- Triton members of the shipped pointwise models (ops/fused_pf.py) ------

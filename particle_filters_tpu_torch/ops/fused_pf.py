@@ -26,6 +26,32 @@ Resampling goes through kernel B2 (via ``systematic_resample_values`` of
 from the kernel's trigger: one 4-byte device→host read per step, where the
 JAX package branches on the device with ``lax.cond``.
 
+With a process group (the counterpart of the JAX package's ``axis_name``)
+each rank runs B1 over its n = N/S particles as rank r of the whole cloud:
+the kernel draws the normals of the particles' global indices and weights
+with log N_global, and its row is the rank's. The ranks ``all_gather``
+their partials rows (the kernel's programs', the plain version's blocks)
+and every rank combines them in rank order by :func:`_combine_partials`
+(:func:`fold_ranks`): the global row, the carry (log Z, 0) and the trigger
+ESS < thresh·N, read on the host from bits that are the same on every
+rank. The rows alone would fold too (log Z = logsumexp_s log_z_s, …), but
+that log Z rounds otherwise than one device's, and the lazy carry feeds
+the difference into the log-weights, where it moves a resample's f32 run
+end by one about every other resample step at N = 4096. Combining the
+partials instead, the plain version's blocks being the one-device blocks
+when a rank's count is a multiple of the block, keeps the sharded plain
+run bit-equal to the one-device run; on the card the programs' partials
+split the cloud otherwise than one launch's, and the sums round
+otherwise. Under a group the kernel still finishes its rank's row, carry
+and trigger, which the fold then overwrites: one kernel serves both uses,
+where a switch for the finish would compile a second kernel for every
+model, and the finish is one program's pass over the programs' partials
+rows (about 1.3 µs of a 2²⁰ step on the H100, PERF.md §7). The resample is
+the global systematic one (``parallel/distributed_resample.py``), all-gather
+or neighbour mode. The initial cloud is drawn at the global shape from the
+replicated generator, each rank keeping its columns, so the sharded filter
+starts from the one-device filter's cloud.
+
 Models are pointwise: an object with ``nx``, ``params`` (the model's
 scalars), torch ``g(x)`` and ``obs_loglik(x, z)`` on (nx, B) tiles for the
 plain version, and ``@triton.jit`` ``g_tl`` / ``obs_loglik_tl`` for the
@@ -41,6 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core.structs import as_f32
 from particle_filters_tpu_torch.resampling.hard import systematic_resample_values
 
@@ -189,20 +216,41 @@ def _block_partials(x_new, lw_new):
     )
 
 
-def fused_step_reference(x, lw, off_u, z, eps, Lq, model):
+def _packed(partials: torch.Tensor, nx: int) -> torch.Tensor:
+    """The packed row ``[log_z, ess, mean, Σw·x⊗x]`` of partials rows."""
+    log_z, ess, mean, exx = _combine_partials(partials, nx)
+    return torch.cat([log_z[None], ess[None], mean, exx])
+
+
+def fold_ranks(partials: torch.Tensor, nx: int, group) -> torch.Tensor:
+    """The whole cloud's packed row from this rank's partials rows: every
+    rank's gathered in rank order and combined (the same bits on every
+    rank). The ranks' counts of rows must agree (equal counts per rank)."""
+    return _packed(comm.all_gather_cat(partials, group), nx)
+
+
+def fused_step_reference(x, lw, off_u, z, eps, Lq, model, n_global=None):
     """Plain version of B1 with injected normals ``eps`` (nx, N).
 
     Returns ``(x', lw', row)``: x' (nx, N), lw' (N,) and the packed row
     ``[log_z, ess, mean (nx), Σw·x⊗x (nx²)]`` that the kernel writes, from
-    block partials folded by :func:`_combine_partials`.
+    block partials folded by :func:`_combine_partials`. ``n_global`` (the
+    whole cloud's count on a rank of a sharded filter) sets the uniform
+    log-weight −log N.
     """
+    x_new, lw_new, partials = _reference_partials(x, lw, off_u, z, eps, Lq, model, n_global)
+    return x_new, lw_new, _packed(partials, x.shape[0])
+
+
+def _reference_partials(x, lw, off_u, z, eps, Lq, model, n_global=None):
+    """:func:`fused_step_reference` with the block partials for its row."""
     nx, n = x.shape
+    n_global = n if n_global is None else n_global
     noise = sum(Lq[:, j : j + 1] * eps[j] for j in range(nx))
     x_new = model.g(x) + noise
-    lw_in = torch.where(off_u[1] > 0.5, -math.log(n), lw - off_u[0])
+    lw_in = torch.where(off_u[1] > 0.5, -math.log(n_global), lw - off_u[0])
     lw_new = lw_in + model.obs_loglik(x_new, z)
-    log_z, ess, mean, exx = _combine_partials(_block_partials(x_new, lw_new), nx)
-    return x_new, lw_new, torch.cat([log_z[None], ess[None], mean, exx])
+    return x_new, lw_new, _block_partials(x_new, lw_new)
 
 
 class StepWork:
@@ -210,7 +258,9 @@ class StepWork:
     counter (0 between launches: the kernel's last program resets it), one
     partials row per program, the carry ``(log_z, 0)`` in two slots that
     launches alternate (a launch may read the previous carry as its
-    ``off_u``) and the int32 trigger ``ess < thresh·N``. One launch at a
+    ``off_u``) and the int32 trigger ``ess < thresh·N``; after a step
+    :meth:`last_partials` are the partials rows its row came from (the
+    kernel's programs', or the plain version's blocks). One launch at a
     time per object; each ``FusedSIRFilter`` owns one."""
 
     def __init__(self, nx: int, device, programs: Optional[int] = None) -> None:
@@ -226,6 +276,11 @@ class StepWork:
         self.partials = torch.zeros((self.programs, partials_width(nx)), device=device)
         self._carry = torch.zeros((2, 2), device=device)
         self._slot = 0
+        self._last = self.partials[:0]
+
+    def last_partials(self) -> torch.Tensor:
+        """The partials rows of the last step (read before the next one)."""
+        return self._last
 
     @property
     def carry(self) -> torch.Tensor:
@@ -237,7 +292,7 @@ class StepWork:
         return self._carry[self._slot]
 
 
-def _check_step_args(x, lw, off_u, z, Lq, params, eps, work=None, **outs):
+def _check_step_args(x, lw, off_u, z, Lq, params, eps, work=None, ranks=1, **outs):
     nx, n = x.shape
     tensors = {"x": x, "lw": lw, "off_u": off_u, "z": z, "Lq": Lq, "params": params}
     if eps is not None:
@@ -264,14 +319,16 @@ def _check_step_args(x, lw, off_u, z, Lq, params, eps, work=None, **outs):
             raise ValueError(f"{name} must be {tuple(shape)}; got {tuple(t.shape)}.")
     if work is not None and work.counter.device != x.device:
         raise ValueError(f"work is on {work.counter.device}, x on {x.device}.")
-    # Offsets are int32: x's (row·N + particle) and Philox's (row·(N + a tile)).
-    if nx > _MAX_NX or nx * (n + 2048) >= 2**31:
-        raise ValueError("need nx <= 10 and nx·(N + 2048) < 2**31.")
+    # Offsets are int32: x's (row·N + particle) and Philox's (row·(N + a
+    # tile) over the whole cloud).
+    if nx > _MAX_NX or nx * ranks * (n + 2048) >= 2**31:
+        raise ValueError("need nx <= 10 and nx·S·(N + 2048) < 2**31.")
 
 
 def fused_step(x, lw, off_u, z, Lq, params, model, *, seed: int,
                eps: Optional[torch.Tensor] = None, resample_thresh: float = 0.5,
-               work: Optional[StepWork] = None, x_out=None, lw_out=None, row_out=None):
+               work: Optional[StepWork] = None, x_out=None, lw_out=None, row_out=None,
+               shard=(0, 1)):
     """One fused propagate-and-weight step: ``(x', lw', row)`` with the
     packed row ``[log_z, ess, mean (nx), Σw·x⊗x (nx²)]``.
 
@@ -283,29 +340,38 @@ def fused_step(x, lw, off_u, z, Lq, params, model, *, seed: int,
     ``seed``. The carry ``(log_z, 0)`` and the trigger
     ``ess < resample_thresh·N`` land in ``work`` (a fresh :class:`StepWork`
     when none is given); ``x_out``, ``lw_out`` and ``row_out`` receive the
-    outputs when given. ``fused_step.launches`` counts kernel launches.
+    outputs when given. ``shard = (r, S)`` runs the step as rank r of S
+    ranks of a cloud of S·N particles (the caller folds the ranks' partials):
+    the normals are those of the particles' global indices (the plain
+    version draws the global (nx, S·N) normals and keeps its columns), and
+    N in −log N and in the trigger is S·N. ``fused_step.launches`` counts
+    kernel launches.
     """
-    _check_step_args(x, lw, off_u, z, Lq, params, eps, work,
+    _check_step_args(x, lw, off_u, z, Lq, params, eps, work, shard[1],
                      x_out=x_out, lw_out=lw_out, row_out=row_out)
     return _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
-                       work, x_out, lw_out, row_out)
+                       work, x_out, lw_out, row_out, shard)
 
 
 def _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
-                work, x_out, lw_out, row_out):
+                work, x_out, lw_out, row_out, shard=(0, 1)):
     """:func:`fused_step` on arguments that have been checked."""
     nx, n = x.shape
+    rank, ranks = shard
     work = StepWork(nx, x.device) if work is None else work
     row_out = torch.empty(row_width(nx), device=x.device) if row_out is None else row_out
     carry = work._next_carry()
     if x.device.type == "cpu":
         if eps is None:
             gen = torch.Generator().manual_seed(int(seed))
-            eps = torch.randn(x.shape, generator=gen, dtype=x.dtype)
-        x_new, lw_new, row = fused_step_reference(x, lw, off_u, z, eps, Lq, model)
+            eps = torch.randn((nx, ranks * n), generator=gen, dtype=x.dtype)
+            eps = eps[:, rank * n:(rank + 1) * n]
+        x_new, lw_new, work._last = _reference_partials(x, lw, off_u, z, eps, Lq, model,
+                                                        ranks * n)
+        row = _packed(work._last, nx)
         row_out.copy_(row)
         carry.copy_(torch.stack([row[0], torch.zeros_like(row[0])]))
-        work.trigger.copy_(row[1] < resample_thresh * n)
+        work.trigger.copy_(row[1] < resample_thresh * ranks * n)
         if x_out is not None:
             x_new = x_out.copy_(x_new)
         if lw_out is not None:
@@ -317,11 +383,12 @@ def _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
 
     x_out = torch.empty_like(x) if x_out is None else x_out
     lw_out = torch.empty_like(lw) if lw_out is None else lw_out
-    _fused_pf_triton.launch(
-        x, lw, off_u, z, Lq, params, eps, model, int(seed), float(resample_thresh * n),
-        x_out, lw_out, row_out, carry, work.trigger, work.counter, work.partials,
-        work.programs,
+    programs = _fused_pf_triton.launch(
+        x, lw, off_u, z, Lq, params, eps, model, int(seed),
+        float(resample_thresh * ranks * n), x_out, lw_out, row_out, carry, work.trigger,
+        work.counter, work.partials, work.programs, shard,
     )
+    work._last = work.partials[:programs]
     fused_step.launches += 1
     return x_out, lw_out, row_out
 
@@ -339,9 +406,17 @@ class FusedSIRFilter:
     ``ParticleFilter.run``. The generator lives on ``device`` (the card
     unless ``device="cpu"``): it draws the initial cloud, the per-step
     kernel seeds and the resampling uniforms.
+
+    With ``group`` the filter is one rank of a sharded one (the module's
+    note): ``Np`` is the global count and must divide over the ranks, the
+    state holds this rank's n = Np/S particles, the generator is the
+    replicated one (seeded alike on every rank), and ``distributed_resample``
+    (``"all_gather"`` | ``"neighbor"``, with ``neighbor_radius``) picks the
+    cross-rank resample, as in ``ParticleFilter``.
     """
 
-    def __init__(self, model, Q, *, Np: int, resample_thresh: float = 0.5,
+    def __init__(self, model, Q, *, Np: int, resample_thresh: float = 0.5, group=None,
+                 distributed_resample: str = "all_gather", neighbor_radius: int = 2,
                  device="cuda") -> None:
         self.model = model
         self.Q = np.asarray(Q, np.float32)
@@ -353,22 +428,34 @@ class FusedSIRFilter:
         self.device = torch.device(device)
         self.Lq = torch.as_tensor(noise_factor(self.Q), device=self.device)
         self.params = torch.tensor(model.params, dtype=torch.float32, device=self.device)
+        if distributed_resample not in ("all_gather", "neighbor"):
+            raise ValueError("distributed_resample must be 'all_gather' or 'neighbor'.")
+        self.group = group
+        self.distributed_resample = distributed_resample
+        self.neighbor_radius = int(neighbor_radius)
+        self.rank, self.ranks = (0, 1) if group is None else (comm.rank(group), comm.size(group))
         self.Np = int(Np)
+        if self.Np % self.ranks:
+            raise ValueError(f"Np={Np} must divide over {self.ranks} ranks.")
+        self.n = self.Np // self.ranks
         self.resample_thresh = float(resample_thresh)
         self._off_resampled = torch.tensor([0.0, 1.0], device=self.device)
         self._work = StepWork(self.nx, self.device)
 
     def _shape(self):
-        return (self.Np,) if self.nx == 1 else (self.nx, self.Np)
+        return (self.n,) if self.nx == 1 else (self.nx, self.n)
 
     def initialize(self, generator, mean, cov):
-        """Particles ~ N(mean, cov), normalized uniform weights, off_u = 0."""
+        """Particles ~ N(mean, cov), normalized uniform weights, off_u = 0:
+        the cloud of all Np particles, of which a rank keeps its columns."""
         mean = as_f32(mean, self.device).reshape(-1)
         cov = torch.atleast_2d(as_f32(cov, self.device))
         L = torch.linalg.cholesky(cov + 1e-10 * torch.eye(self.nx, device=self.device))
         eps = torch.randn((self.nx, self.Np), generator=generator, device=self.device)
-        particles = (mean[:, None] + L @ eps).reshape(self._shape()).contiguous()
-        logw = torch.full((self.Np,), -math.log(self.Np), device=self.device)
+        cloud = mean[:, None] + L @ eps
+        particles = cloud[:, self.rank * self.n:(self.rank + 1) * self.n]
+        particles = particles.reshape(self._shape()).contiguous()
+        logw = torch.full((self.n,), -math.log(self.Np), device=self.device)
         return particles, logw, torch.zeros(2, device=self.device)
 
     def effective_logw(self, state):
@@ -383,38 +470,62 @@ class FusedSIRFilter:
             0, 2**31 - 1, (T,), generator=generator, device=generator.device
         ).tolist()
 
-    def _resample(self, generator, particles, logw):
-        p = particles.view(self.Np, 1) if self.nx == 1 else particles.T
-        p_new = systematic_resample_values(generator, p, logw=logw)
-        return p_new.view(self.Np) if self.nx == 1 else p_new.T.contiguous()
+    def _resample(self, generator, particles, logw, log_z):
+        """The resampled particles and whether a neighbour pool sufficed.
+        ``logw`` is the kernel's output, whose logsumexp over the whole
+        cloud is ``log_z``."""
+        p = particles.view(self.n, 1) if self.nx == 1 else particles.T
+        ok = True
+        if self.group is None:
+            p_new = systematic_resample_values(generator, p, logw=logw)
+        elif self.distributed_resample == "neighbor":
+            from particle_filters_tpu_torch.parallel.distributed_resample import (
+                neighbor_exchange_systematic_resample,
+            )
+
+            p_new, ok = neighbor_exchange_systematic_resample(
+                generator, p, logw - log_z, group=self.group, radius=self.neighbor_radius)
+        else:
+            from particle_filters_tpu_torch.parallel.distributed_resample import (
+                all_gather_systematic_resample,
+            )
+
+            p_new, _ = all_gather_systematic_resample(generator, p, logw, group=self.group)
+        return (p_new.view(self.n) if self.nx == 1 else p_new.T.contiguous()), ok
 
     def _check(self, state, z):
         particles, logw, off_u = state
-        _check_step_args(particles.view(self.nx, self.Np), logw, off_u, z, self.Lq,
-                         self.params, None)
+        _check_step_args(particles.view(self.nx, self.n), logw, off_u, z, self.Lq,
+                         self.params, None, ranks=self.ranks)
 
     def _step_core(self, seed, generator, carry, z, row_out, x_out=None, lw_out=None):
         """One fused step + conditional resample on checked arguments:
-        ``(carry, trigger)``. The step's row ``[log_z, ess, mean (nx),
-        Σw·x⊗x (nx²)]`` lands in ``row_out``; x' and lw' in ``x_out`` and
+        ``(carry, trigger, exchange_ok)``. The step's row ``[log_z, ess,
+        mean (nx), Σw·x⊗x (nx²)]`` (the whole cloud's, folded over the ranks
+        with a group) lands in ``row_out``; x' and lw' in ``x_out`` and
         ``lw_out`` when given (neither may be an input of the step)."""
         particles, logw, off_u = carry
         x_new, logw, _ = _fused_step(
-            particles.view(self.nx, self.Np), logw, off_u, z, self.Lq, self.params,
+            particles.view(self.nx, self.n), logw, off_u, z, self.Lq, self.params,
             self.model, seed, None, self.resample_thresh, self._work, x_out, lw_out,
-            row_out,
+            row_out, (self.rank, self.ranks),
         )
         particles = x_new.view(self._shape())
+        if self.ranks > 1:
+            row_out.copy_(fold_ranks(self._work.last_partials(), self.nx, self.group))
+            self._work.carry.copy_(torch.stack([row_out[0], torch.zeros_like(row_out[0])]))
+            self._work.trigger.copy_(row_out[1] < self.resample_thresh * self.Np)
         # The one host read of the step (4 bytes): the resample branch runs on the host.
         trigger = bool(self._work.trigger.item())
+        ok = True
         if trigger:
-            particles = self._resample(generator, particles, logw)
+            particles, ok = self._resample(generator, particles, logw, row_out[0])
             off_u = self._off_resampled
         else:
             off_u = self._work.carry
-        return (particles, logw, off_u), trigger
+        return (particles, logw, off_u), trigger, ok
 
-    def _hist_dict(self, rows, triggers):
+    def _hist_dict(self, rows, triggers, oks=None):
         nx = self.nx
         mean = rows[..., 2 : 2 + nx]
         exx = rows[..., 2 + nx : 2 + nx + nx * nx].reshape(rows.shape[:-1] + (nx, nx))
@@ -425,7 +536,8 @@ class FusedSIRFilter:
             "ess": rows[..., 1],
             "resampled": resampled,
             "log_evidence": rows[..., 0],
-            "exchange_ok": torch.ones_like(resampled),
+            "exchange_ok": (torch.ones_like(resampled) if oks is None else
+                            torch.tensor(oks, dtype=torch.bool, device=rows.device)),
         }
 
     def _obs(self, z):
@@ -437,8 +549,8 @@ class FusedSIRFilter:
         z = self._obs(z).reshape(-1)
         self._check(state, z)
         row = torch.empty(row_width(self.nx), device=self.device)
-        (particles, logw, off_u), trig = self._step_core(seed, generator, state, z, row)
-        return (particles, logw, off_u.clone()), self._hist_dict(row, trig)
+        (particles, logw, off_u), trig, ok = self._step_core(seed, generator, state, z, row)
+        return (particles, logw, off_u.clone()), self._hist_dict(row, trig, ok)
 
     def run(self, generator, state, zs):
         """Filter a (T, nz) sequence; the history mirrors ``ParticleFilter.run``.
@@ -450,13 +562,14 @@ class FusedSIRFilter:
         T = zs.shape[0]
         self._check(state, zs[0])
         seeds = self._draw_seeds(generator, T)
-        xs = torch.empty((2, self.nx, self.Np), device=self.device)
-        lws = torch.empty((2, self.Np), device=self.device)
+        xs = torch.empty((2, self.nx, self.n), device=self.device)
+        lws = torch.empty((2, self.n), device=self.device)
         rows = torch.empty((T, row_width(self.nx)), device=self.device)
-        triggers = []
+        triggers, oks = [], []
         for t, seed in enumerate(seeds):
-            state, trig = self._step_core(seed, generator, state, zs[t], rows[t],
-                                          xs[t % 2], lws[t % 2])
+            state, trig, ok = self._step_core(seed, generator, state, zs[t], rows[t],
+                                              xs[t % 2], lws[t % 2])
             triggers.append(trig)
+            oks.append(ok)
         particles, logw, off_u = state
-        return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers)
+        return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers, oks)

@@ -22,6 +22,14 @@ per output spent twenty dependent ones.
 
 The starts come from torch ops (``resampling.hard._systematic_starts``),
 as they came from XLA in the JAX package.
+
+The M→n form serves the sharded filters: M sorted starts (and M value
+rows) and n outputs, from output ``offset`` on, ``out[i] = values[max{j :
+starts[j] ≤ offset + i}]``. A rank writes only its own slice of a global
+resample: all-gather mode merges the gathered cloud's N starts with the
+rank's n outputs (offset rank·n); neighbor mode merges its (2r+1)·n pooled
+starts. The kernel clamps each start to [0, n] after the offset as it reads
+it, so the shift costs no pass over the starts.
 """
 
 from __future__ import annotations
@@ -37,15 +45,17 @@ _SOURCES = ("systematic_resample.cu",)
 
 
 def resample_by_starts_reference(
-    particles: torch.Tensor, starts: torch.Tensor
+    particles: torch.Tensor, starts: torch.Tensor, n_out=None, offset: int = 0
 ) -> torch.Tensor:
-    """Plain version of B2: ``out[i] = particles[max{j : starts[j] ≤ i}]``."""
-    pos = torch.arange(particles.shape[0], device=starts.device, dtype=starts.dtype)
+    """Plain version of B2: ``out[i] = particles[max{j : starts[j] ≤ offset
+    + i}]`` for i < ``n_out`` (default: the rows of ``particles``)."""
+    n_out = particles.shape[0] if n_out is None else n_out
+    pos = torch.arange(offset, offset + n_out, device=starts.device, dtype=starts.dtype)
     idx = torch.searchsorted(starts, pos, right=True) - 1
     return particles[idx.clamp_(min=0)]
 
 
-def _check(particles: torch.Tensor, starts: torch.Tensor) -> None:
+def _check(particles: torch.Tensor, starts: torch.Tensor, n_out: int, offset: int) -> None:
     if particles.ndim != 2:
         raise ValueError(f"particles must be (N, d); got {tuple(particles.shape)}.")
     if starts.ndim != 1 or starts.shape[0] != particles.shape[0]:
@@ -62,39 +72,47 @@ def _check(particles: torch.Tensor, starts: torch.Tensor) -> None:
         raise ValueError("particles and starts must be on one device.")
     if not (particles.is_contiguous() and starts.is_contiguous()):
         raise ValueError("particles and starts must be contiguous.")
-    if particles.shape[0] > 2**30:
-        raise ValueError("N must be at most 2**30.")
+    if particles.shape[0] > 2**30 or not 0 <= n_out <= 2**30:
+        raise ValueError("need M and n_out in [0, 2**30].")
+    if not 0 <= offset < 2**31 - n_out:
+        raise ValueError(f"need 0 <= offset and offset + n_out < 2**31; got {offset}.")
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library(_LIB, *_SOURCES)
     fn = lib.pf_resample_by_starts
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-    """Systematic-resampled values of (N, d) f32 ``particles`` given the
-    sorted (N,) int32 child-run ``starts`` (``starts[0] == 0``).
+def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor, n_out=None,
+                       offset: int = 0) -> torch.Tensor:
+    """Systematic-resampled values of (M, d) f32 ``particles`` given their
+    sorted (M,) int32 child-run ``starts``: ``out[i] = particles[max{j :
+    starts[j] ≤ offset + i}]`` for i < ``n_out`` (default M), which needs
+    ``starts[0] ≤ offset`` (``starts[0] == 0`` for the whole cloud).
 
     A CUDA tensor goes through kernel B2; a CPU tensor through its plain
     version. ``resample_by_starts.launches`` counts kernel launches.
     """
-    _check(particles, starts)
+    n_out = particles.shape[0] if n_out is None else int(n_out)
+    offset = int(offset)
+    _check(particles, starts, n_out, offset)
     if particles.device.type == "cpu":
-        return resample_by_starts_reference(particles, starts)
+        return resample_by_starts_reference(particles, starts, n_out, offset)
     if particles.device.type != "cuda":
         raise ValueError(f"unsupported device {particles.device}.")
     lib = _library()
     if starts.data_ptr() % 16:  # the kernel stages the starts with 16-byte copies
         starts = starts.clone()
-    out = torch.empty_like(particles)
-    n, d = particles.shape
+    m, d = particles.shape
+    out = particles.new_empty((n_out, d))
     with torch.cuda.device(particles.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pf_resample_by_starts(
-            particles.data_ptr(), starts.data_ptr(), out.data_ptr(), n, d, stream
+            particles.data_ptr(), starts.data_ptr(), out.data_ptr(), m, n_out, d, offset,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"B2 resample kernel launch failed: CUDA error {err}.")

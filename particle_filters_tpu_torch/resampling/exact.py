@@ -26,6 +26,13 @@ path applies to its cdf is not needed: integer sums cannot descend.
 Every function works on weights of shape (..., N), one convention per row;
 the JAX package's are 1-D.
 
+With a process group (``parallel/distributed_resample.py``) each rank
+quantizes its slice on the global grid: e_max from an ``all_reduce(MAX)``
+of the largest weight, V from a sum over ranks of the int64 coarse totals
+(exact, so the same for any layout), and the ranks' slices of Q offset by
+their exclusive int64 shard totals: the same integers as the one-device
+call on the gathered weights.
+
 Bounds: the coarse integers are < 2²⁵ with the largest ≥ 2²⁴, so e2 ≥ 24
 and q_i ≤ 2⁴¹ (the clamp at 2⁴³ is the JAX package's); Σ w·scale ≤
 2⁴¹·(V + N/2)/V, which is < 2⁴⁴ for N ≤ 2²⁷.
@@ -34,6 +41,8 @@ and q_i ≤ 2⁴¹ (the clamp at 2⁴³ is the JAX package's); Σ w·scale ≤
 from __future__ import annotations
 
 import torch
+
+from particle_filters_tpu_torch.core import comm
 
 EXACT_THRESHOLD = 1 << 24  # hard.py switches to this path above 2^24
 _M_MAX = 1 << 27  # largest supported output count M
@@ -74,14 +83,15 @@ def weight_scale_pow2(e_max: torch.Tensor, v_total: torch.Tensor) -> torch.Tenso
     return _pow2i(64 - e_max - e2)
 
 
-def quantize_weights(weights: torch.Tensor) -> torch.Tensor:
+def quantize_weights(weights: torch.Tensor, group=None) -> torch.Tensor:
     """The convention's int64 integers q_i = round(w_i·2^(64 − e_max − e2)),
-    along the last axis."""
+    along the last axis; with ``group``, this rank's slice of those of the
+    weights of every rank (1-D)."""
     w = clean_weights(weights)
-    w_max = torch.clamp(torch.amax(w, dim=-1, keepdim=True), min=2.0**-40)
-    e_max = _f32_exponent(w_max)
+    w_max = comm.pmax(torch.amax(w, dim=-1, keepdim=True), group)
+    e_max = _f32_exponent(torch.clamp(w_max, min=2.0**-40))
     coarse = torch.round(w * _pow2i(24 - e_max)).to(torch.int64)  # < 2^25: exact
-    v_total = coarse.sum(dim=-1, keepdim=True)
+    v_total = comm.psum(coarse.sum(dim=-1, keepdim=True), group)
     r = w * weight_scale_pow2(e_max, v_total)  # times a power of two: exact
     r = torch.clamp(torch.where(torch.isfinite(r), r, torch.zeros_like(r)), 0.0, 2.0**43)
     return torch.round(r).to(torch.int64)  # half to even, as the JAX limb split
