@@ -91,6 +91,22 @@ super-groups get NaN). Then:
   and the nlngssm column (EDH, LEDH, KPF at N = 500) cut to its first 100
   steps, each against the JAX package's committed values (Kalman RMSEs
   within 1e-3, the others by Welch tests over seeds, p >= 1e-3);
+- the north-star scripts: the bench twin (``benchmarks.bench``: the main
+  path's workload, the best of 5 runs after a warm-up, its JSON on a line
+  of its own) held to the main path's gates, and the scaling curve
+  (``benchmarks.scaling_curve``) at N = 2^14 ... 2^24, each N's ms/step,
+  particle-steps/s, resample fraction and device busy share, finite
+  histories at every N; B1 and B2 counted;
+- the examples path: the seven notebook examples that no column reproduces
+  (``particle_filters_tpu_torch/examples``), each at its own size but for
+  the cuts named at ``EX15_T`` (fewer steps and seeds), their tables
+  printed, each held to its module's gates (ex15's boundary resample
+  fractions exactly 0 and 1; ex14's EKF/UKF RMSEs within 1e-3 of the JAX
+  package's and its PF RMSEs against the JAX package's 8 keys; ex01's mean
+  NEES in the chi^2 band; ex12's variance reductions; ex11's linear beta
+  below beta*, and beta* on the card equal to the CPU's within 3e-7; ex08's
+  finite cells and best cell within 5 standard errors of the JAX package's;
+  ex07's decreasing loss and final a), B2 counted on the PF rows;
 - the profiling path: the small-N step decomposition
   (``benchmarks.profile_small_n``, N = 2^14, 2^16, 2^20), probe X1's
   variants (``benchmarks.exp_kernel_var``) and probe X2 against B2
@@ -124,6 +140,7 @@ import torch
 import torch.distributed as dist
 
 from particle_filters_tpu_torch.benchmarks import (
+    bench,
     dpf,
     exp_kernel_var,
     exp_resample_dma,
@@ -132,6 +149,7 @@ from particle_filters_tpu_torch.benchmarks import (
     nlngssm,
     ot_large,
     profile_small_n,
+    scaling_curve,
     sharded,
     skewt,
     snlg,
@@ -139,6 +157,15 @@ from particle_filters_tpu_torch.benchmarks import (
     sv_classic,
 )
 from particle_filters_tpu_torch.benchmarks._stats import P_MIN
+from particle_filters_tpu_torch.examples import (
+    ex01_kalman_lgssm as ex01,
+    ex07_train_dpf as ex07,
+    ex08_dpf_ot_tuning as ex08,
+    ex11_spf_ledh_beta_schedule as ex11,
+    ex12_kernel_pf_experiments as ex12,
+    ex14_sv_variance_stabilized as ex14,
+    ex15_pf_degeneracy_analysis as ex15,
+)
 from particle_filters_tpu_torch.models import ParticleFilter
 from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
@@ -162,6 +189,7 @@ from particle_filters_tpu_torch.resampling.hard import (
     batched_starts,
 )
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
+from particle_filters_tpu_torch.utils.timing import kernel_records
 
 N = 1 << 20
 T = 200
@@ -194,6 +222,20 @@ SPF_EX2_STEPS = 10
 DPF_TRAIN_STEPS = 20  # Adam steps of the trained RNN timed here (the module takes 300)
 OT_DENSE_TOL = 1e-4  # dense against blockwise Sinkhorn at N = 4096 on the card
 CHUNK_T, CHUNK_SIZE, CHUNK_STOP = 30, 10, 2  # run_chunked at N = 2^20: interrupt after 2
+# The north-star phase: the scaling curve's timed runs of each length after
+# the warm-up (the module takes 4, as the JAX script does).
+SCALING_REPS = 1
+# The examples phase, at the examples' own sizes but for these cuts, which
+# the phases' 150 s forces (the general PF and the Kalman loops take 1.7-4
+# ms a step on the card's host; the modules run them uncut): ex15 over the
+# first EX15_T of its 2000 steps, experiment 3 over EX15_SEEDS seeds (16);
+# ex14 over its first T_CUT = 500 steps (held to the JAX package's values
+# over those steps), its PF rows over EX14_PF_SEEDS seeds a form (8); ex01
+# over the first EX01_SEEDS of its 10 seeds.
+EX15_T, EX15_SEEDS = 500, 4
+EX14_PF_SEEDS = 3
+EX01_SEEDS = 4
+EX11_BETA_TOL = 3e-7  # beta* on the card against the CPU port, from the same M0 and Mh
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
 
@@ -1150,23 +1192,18 @@ def time_x3_pairs(gen, card, pairs: int = 7):
     return medians["X3"], medians["torch.add"]
 
 
-def time_fused_run(n, card, fused_run) -> None:
-    """Wall time of the whole fused run, and what the card spent it on."""
+def time_fused_run(n, card, fused_run) -> float:
+    """Wall time of the whole fused run, and what the card spent it on;
+    returns its ms/step."""
     filt, gen, state0, zs = fused_run
     run_ms = _time_ms(lambda: filt.run(gen, state0, zs), reps=1)
     print(f"fused SV run N={n} T={T}: {run_ms / T:.4f} ms/step, "
           f"{n * T / (run_ms * 1e-3):.4e} particle-steps/s  [{card}]")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        filt.run(gen, state0, zs)
-        torch.cuda.synchronize()
-    # Kernel records only: an operator's record repeats its kernels' time.
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = kernel_records(lambda: filt.run(gen, state0, zs))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         print("fused run device breakdown: not measured (profiler saw no device time)")
-        return
+        return run_ms / T
     print(f"fused run device busy {busy_ms:.3f} ms of {run_ms:.3f} ms wall "
           f"({busy_ms / run_ms:.3f}; unprofiled wall)  [{card}]")
     ported_ms = 0.0
@@ -1178,6 +1215,8 @@ def time_fused_run(n, card, fused_run) -> None:
     print(f"  torch ops around the kernels: {busy_ms - ported_ms:.3f} ms device time")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return run_ms / T
+
 
 # --- the SPF, DPF, OT and run_chunked paths --------------------------------------
 def _beta_gap(label, card_sol, cpu_sol):
@@ -1486,6 +1525,90 @@ def run_sv_columns(device, card):
     return {"B2": r["b2_launches"]}
 
 
+# --- the north-star scripts and the notebook examples ---------------------------
+def _gates(label, gates):
+    for gate, (value, held) in gates.items():
+        _check(held, f"{label} {gate}: {value}")
+
+
+def run_north_star(device, card):
+    """The bench twin (``benchmarks/bench.py``: the main path's workload,
+    the best of 5 runs after a warm-up; its JSON on a line of its own) held
+    to the main path's gates, and the scaling curve at N = 2^14 ... 2^24
+    (``benchmarks/scaling_curve.py``, ``SCALING_REPS`` runs of each length)
+    with finite histories at every N. Returns B1's and B2's launches (set
+    to 0 just before, read just after) and the bench's ms/step."""
+    t0 = time.perf_counter()
+    fused_step.launches = 0
+    b2.resample_by_starts.launches = 0
+    record = bench.run(device)
+    print(json.dumps(record))
+    _gates("bench twin", bench.gates(record))
+    _check(record["extras"]["fused_kernel_step"], "bench twin: B1 ran")
+    rows = scaling_curve.curve(device, reps=SCALING_REPS)
+    for r in rows:
+        print(f"scaling {scaling_curve.format_row(r)}  [{card}]")
+        _check(r["finite"], f"scaling curve N=2^{r['log2_n']}: finite histories")
+    counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches}
+    _check(counts["B1"] > 0 and counts["B2"] > 0, f"north star: B1 and B2 launched, {counts}")
+    print(f"north_star phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    return counts, record["extras"]["ms_per_step"]
+
+
+def run_examples_path(device, card):
+    """The seven notebook examples that no column reproduces, each at its
+    own size but for the cuts named at ``EX15_T``, their tables printed and
+    held to their modules' gates; ex11's beta* also against the CPU port's
+    from the same model. Returns B2's launches (the PF rows of ex14 and
+    ex15; set to 0 just before, read just after)."""
+    t_phase = time.perf_counter()
+    b2.resample_by_starts.launches = 0
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    res = timed("ex15", lambda: ex15.run_all(device, seeds=EX15_SEEDS, t=EX15_T))
+    ex15.print_tables(res, card)
+    _gates("ex15", ex15.gates(res))
+    data14 = ex14.load_data(device)
+    res = timed("ex14", lambda: ex14.run_all(device, data14, seeds=EX14_PF_SEEDS,
+                                             t=ex14.T_CUT))
+    ex14.print_tables(res, data14, card)
+    for row, (value, ref, held) in ex14.gates(res, data14).items():
+        _check(held, f"ex14 {row}: {value} against the JAX package's {ref}")
+    res = timed("ex01", lambda: ex01.run_all(device, seeds=ex01.SEEDS[:EX01_SEEDS]))
+    ex01.print_tables(res, card)
+    _gates("ex01", ex01.gates(res))
+    res = timed("ex12", lambda: ex12.run_all(device))
+    ex12.print_tables(res, card)
+    _gates("ex12", ex12.gates(res))
+    res = timed("ex11", lambda: ex11.run_all(device))
+    ex11.print_tables(res, card)
+    _gates("ex11", ex11.gates(res))
+    model = res["model"]
+    beta_cpu = spf.solve_beta_star_bisection(model.M0.cpu(), model.Mh.cpu(), mu=ex11.MU,
+                                             n_grid=ex11.N_STEPS + 1)[1]
+    gap = (res["beta_opt"].cpu() - beta_cpu).abs().max().item()
+    _check(gap <= EX11_BETA_TOL, f"ex11 beta* card vs CPU {gap} <= {EX11_BETA_TOL}")
+    print(f"ex11 beta* card vs CPU (same M0, Mh): max |diff| {gap:.3e}")
+    res = timed("ex08", lambda: ex08.run_all(device))
+    ex08.print_tables(res, card)
+    _gates("ex08", ex08.gates(res))
+    res = timed("ex07", lambda: ex07.train(device))
+    ex07.print_tables(res, card)
+    _gates("ex07", ex07.gates(res))
+    counts = {"B2": b2.resample_by_starts.launches}
+    _check(counts["B2"] > 0, f"examples: B2 launched on the PF rows, {counts}")
+    print(f"examples phase {time.perf_counter() - t_phase:.1f} s: "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }  [{card}]")
+    return counts
+
+
 def _build_all(gen) -> None:
     """One nvcc per CUDA source, all started together; then B1's Triton
     compiles (two models, drawn and injected normals)."""
@@ -1543,10 +1666,12 @@ def main() -> None:
     chunked_counts = run_chunked_path(device, card)
     par_counts = run_parallel_path(gen, device, card)
     sv_counts = run_sv_columns(device, card)
+    north_counts, bench_ms = run_north_star(device, card)
+    ex_counts = run_examples_path(device, card)
     print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}, "
           f"skew-t {skewt_counts}, MAT {mat_counts}, SPF {spf_counts}, DPF {{}}, OT {{}}, "
           f"run_chunked {chunked_counts}, parallel {par_counts}, sv_classic {sv_counts}, "
-          f"nlngssm {{}}")
+          f"nlngssm {{}}, north_star {north_counts}, examples {ex_counts}")
     check_determinism(N, device)
     counts.update(run_profiling_path(device, card))
     times = time_kernels(gen, N, device, card)
@@ -1557,7 +1682,10 @@ def main() -> None:
     time_run_ends(gen, device, card)
     x3_ms, add_ms = time_x3_pairs(gen, card)
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
-    time_fused_run(N, card, fused_run)
+    fused_ms = time_fused_run(N, card, fused_run)
+    print(f"fused SV run N={N} T={T}: bench twin {bench_ms:.4f} ms/step (best of "
+          f"{bench.RUNS}, host clock to a sync) against {fused_ms:.4f} (median of 5, CUDA "
+          f"events): ratio {bench_ms / fused_ms:.3f}  [{card}]")
 
     rows = (
         ("B1", "B1 fused SIR propagate-and-weight step", "triton",

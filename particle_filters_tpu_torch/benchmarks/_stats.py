@@ -29,6 +29,16 @@ def welch_z(values, ref_mean: float, ref_sd: float, ref_n: int):
     return z, _p(z)
 
 
+def reference_sd_z(values, ref_mean: float, ref_sd: float, ref_n: int):
+    """(z, p) of the mean of ``values`` against a reference sample, both
+    samples' spread taken as the reference's standard deviation (the same
+    distribution under the null). For a few values, whose own standard
+    deviation is too noisy for :func:`welch_z`."""
+    se = ref_sd * math.sqrt(1.0 / len(values) + 1.0 / ref_n)
+    z = (statistics.fmean(values) - ref_mean) / se
+    return z, _p(z)
+
+
 def paired_z(values, ref_values):
     """(z, p) of the mean difference of paired samples (the same runs on
     the same data)."""

@@ -32,6 +32,7 @@ import torch
 from particle_filters_tpu_torch.ops import _nvcc
 from particle_filters_tpu_torch.ops.resample import resample_by_starts_reference
 from particle_filters_tpu_torch.resampling.hard import _systematic_starts
+from particle_filters_tpu_torch.utils.timing import card_line
 
 N = 1 << 20
 _KEEP = "  if (d > 0) { if (threadIdx.x == 0 && d == -1) out[0] = %s; return; }\n"
@@ -150,10 +151,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("b2_phases needs a CUDA device.", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    run(torch.device("cuda"), card)
+    run(torch.device("cuda"), card_line())
     return 0
 
 

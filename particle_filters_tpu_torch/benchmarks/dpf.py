@@ -44,12 +44,13 @@ import numpy as np
 import torch
 
 from particle_filters_tpu_torch.benchmarks._stats import welch_z
-from particle_filters_tpu_torch.benchmarks.snlg import _timed, card_line, print_profile
+from particle_filters_tpu_torch.benchmarks.snlg import _timed, print_profile
 from particle_filters_tpu_torch.models.dpf import (
     DPF_OT,
     DifferentiableParticleFilter,
     DifferentiableParticleFilterRNN,
 )
+from particle_filters_tpu_torch.utils.timing import card_line
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "dpf.npz"
 PARAMS = pathlib.Path(__file__).resolve().parents[2] / "examples" / "rnn_resampler_params.npz"

@@ -44,13 +44,13 @@ import time
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.benchmarks.snlg import _sync, card_line
 from particle_filters_tpu_torch.models.kernel_particle_filter import (
     KernelParticleFilter,
     KPFConfig,
     Model,
 )
 from particle_filters_tpu_torch.simulators.lorenz96 import ObsModel, compute_rmse
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "kpf_l96_nx1000.npz"
 _EXAMPLE = dict(ds_init=0.2, ds_min=1e-3, c_move_max=2.0, min_steps=5, max_steps=100,
@@ -97,8 +97,8 @@ def run_cases(device="cuda", data=None, cases=CASES):
     (wall, to a sync, after a warm-up), ``rms`` and ``max_abs`` (the
     posterior against the JAX package's), ``rmse_forecast`` and
     ``rmse_analysis`` (ensemble means against the truth) and ``posterior``;
-    ``pinned`` holds ``steps``, ``s``, ``rms`` and ``max_abs`` of the run
-    with the jitter pinned at ``JAX_RUNG``."""
+    ``pinned`` holds ``steps``, ``s``, ``rms``, ``max_abs`` and
+    ``posterior`` of the run with the jitter pinned at ``JAX_RUNG``."""
     device = torch.device(device)
     data = load_data(device) if data is None else data
     model = obs_model(data)
@@ -108,10 +108,10 @@ def run_cases(device="cuda", data=None, cases=CASES):
         want = data[f"post_{name}"]
         kpf = KernelParticleFilter(model, cfg)
         kpf.analyze(X, y)  # warm-up
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         st = kpf.analyze(X, y)
-        _sync(device)
+        sync(device)
         ms = (time.perf_counter() - t0) * 1e3
         pinned = kpf.analyze(X, y, jitter=JAX_RUNG[name])
         out[name] = {
@@ -122,7 +122,7 @@ def run_cases(device="cuda", data=None, cases=CASES):
             "rmse_analysis": compute_rmse(st.particles.mean(0), truth).item(),
             "posterior": st.particles,
             "pinned": {"steps": int(pinned.steps), "s": float(pinned.s),
-                       **_diff(pinned.particles, want)},
+                       **_diff(pinned.particles, want), "posterior": pinned.particles},
         }
     return out
 

@@ -34,7 +34,7 @@ import sys
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.benchmarks.snlg import _sync, _timed, card_line
+from particle_filters_tpu_torch.benchmarks.snlg import _timed
 from particle_filters_tpu_torch.core.linalg import mvn_logpdf_chol
 from particle_filters_tpu_torch.core.structs import stack_states
 from particle_filters_tpu_torch.models import (
@@ -55,6 +55,7 @@ from particle_filters_tpu_torch.simulators.acoustic_tracking import (
     article_process_noise_cov,
     build_cv_transition,
 )
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "mat_t40.npz"
 C, NX, T, N = 4, 16, 40, 500
@@ -227,7 +228,7 @@ def run_column(device="cuda", data=None, seeds: int = SEEDS, n_particles: int = 
     for tag in flows:
         filt, noise = make_flow(tag, n_particles, data["S"])
         run_flow(filt, noise, data["zs"][:1], data["x0"], seeds, gen)  # warm-up
-        _sync(device)
+        sync(device)
         secs, (hist, launches) = _timed(
             lambda: run_flow(filt, noise, data["zs"], data["x0"], seeds, gen), lambda: None,
             device)

@@ -27,7 +27,6 @@ import time
 import torch
 
 from particle_filters_tpu_torch.benchmarks._stats import P_MIN, summary, welch_z
-from particle_filters_tpu_torch.benchmarks.snlg import _sync, card_line
 from particle_filters_tpu_torch.benchmarks.sv_classic import (
     ALPHA,
     BETA,
@@ -47,6 +46,7 @@ from particle_filters_tpu_torch.models import (
     Model,
     UnscentedKalmanFilter,
 )
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 T, N, N_LAMBDA, KPF_MAX_STEPS = 1000, 500, 10, 20
 T_CUT = 100
@@ -122,17 +122,17 @@ def run_column(device="cuda", data=None, t=T, n=N, seeds=SEEDS, names=NAMES):
         if name == "kpf":
             means, secs = [], []
             for seed in range(seeds):
-                _sync(device)
+                sync(device)
                 t0 = time.perf_counter()
                 means.append(run_kpf(zs, n, seed, device))
-                _sync(device)
+                sync(device)
                 secs.append(time.perf_counter() - t0)
             means = torch.stack(means)
         else:
-            _sync(device)
+            sync(device)
             t0 = time.perf_counter()
             means = run_flow(name, zs, n, seeds, device)
-            _sync(device)
+            sync(device)
             secs = [time.perf_counter() - t0]
         out[name] = {"rmses": torch.sqrt(torch.mean((means - X) ** 2, dim=1)).tolist(),
                      "s": secs[0]}

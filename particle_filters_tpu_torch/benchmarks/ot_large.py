@@ -23,9 +23,10 @@ import time
 
 import torch
 
-from particle_filters_tpu_torch.benchmarks.snlg import _sync, card_line, print_profile
+from particle_filters_tpu_torch.benchmarks.snlg import print_profile
 from particle_filters_tpu_torch.resampling.ot import sinkhorn_ot_resample
 from particle_filters_tpu_torch.resampling.ot_blockwise import sinkhorn_ot_resample_blockwise
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 SIZES = (4096, 16384, 65536)
 EPSILON, N_ITERS, BLOCK = 0.1, 10, 512
@@ -65,13 +66,13 @@ def run(device, sizes=SIZES, seed=0):
             return sinkhorn_ot_resample_blockwise(p, w, epsilon=EPSILON, n_iters=N_ITERS,
                                                   block=BLOCK)[0]
         call()
-        _sync(device)
+        sync(device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         new_p = call()
-        _sync(device)
+        sync(device)
         secs = time.perf_counter() - t0
         peak = ((torch.cuda.max_memory_allocated(device) - base) / 2**20
                 if device.type == "cuda" else float("nan"))
@@ -93,10 +94,10 @@ def dense_vs_blockwise(device, n=DENSE_N, seed=1):
                     ("blockwise", lambda: sinkhorn_ot_resample_blockwise(p, w, block=BLOCK,
                                                                          **kw)[0])):
         fn()
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         res[tag] = fn()
-        _sync(device)
+        sync(device)
         res[tag + "_s"] = time.perf_counter() - t0
     res["max_abs_diff"] = float((res["dense"] - res["blockwise"]).abs().max())
     res["n"] = n

@@ -76,6 +76,7 @@ from particle_filters_tpu_torch.parallel.launch import process_group, run_ranks
 from particle_filters_tpu_torch.resampling.exact import exact_child_run_ends_u
 from particle_filters_tpu_torch.resampling.hard import _child_run_ends_u, _systematic_starts
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 N, T = 1 << 20, 200
 ALPHA, SIGMA, BETA = 0.95, 0.2, 1.0
@@ -116,11 +117,6 @@ DPF_B, DPF_N, DPF_T = 8, 100, 100
 DPF_ALPHA, DPF_SIGMA, DPF_BETA = 0.95, 0.2, 0.6
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _world():
     return dist.group.WORLD
 
@@ -134,10 +130,10 @@ def _run_fused(filt, zs, device, seed=0):
     """(final state, history, seconds) of ``filt`` from ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     st = filt.initialize(gen, [0.0], [[SIGMA**2 / (1 - ALPHA**2)]])
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     final, hist = filt.run(gen, st, zs)
-    _sync(device)
+    sync(device)
     return final, hist, time.perf_counter() - t0
 
 
@@ -283,10 +279,10 @@ def snlg_edh(device, t=EDH_T, n=EDH_N):
         gen = torch.Generator(device=device).manual_seed(5)
         st = filt.init_from_gaussian(gen, zeros, Sigma)
         ts = filt.tracker.init(zeros, Sigma)
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         _, _, hists[g] = filt.run(gen, st, ts, Z)
-        _sync(device)
+        sync(device)
         secs[g].append(time.perf_counter() - t0)
     return (X[0, 1:], hists[None], hists[_world()], float(np.mean(secs[None])),
             float(np.mean(secs[_world()])))
@@ -306,11 +302,11 @@ def collective_us(device, reps: int = 200):
     out = {}
     for label, fn in ops.items():
         fn()
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-            _sync(device)
+            sync(device)
         out[label] = (time.perf_counter() - t0) / reps * 1e6
     return out
 
@@ -355,10 +351,10 @@ def dpf_step(device):
             loss_fn=lambda m, x: torch.mean((m - x) ** 2), learning_rate=lr)
         params = {"alpha": torch.tensor(0.9, device=device),
                   "log_sigma": torch.tensor(math.log(0.3), device=device)}
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         loss, new = step(params, torch.Generator(device=device).manual_seed(0), ys, xs)
-        _sync(device)
+        sync(device)
         out[label] = (loss, {k: (params[k] - new[k]) / lr for k in params},
                       time.perf_counter() - t0)
     return out
@@ -544,7 +540,7 @@ def main_across(argv) -> int:
     if a.device == "cuda" and not torch.cuda.is_available():
         print("sharded --device cuda needs a CUDA device.", file=sys.stderr)
         return 1
-    card = snlg.card_line() if a.device == "cuda" else "CPU"
+    card = card_line() if a.device == "cuda" else "CPU"
     t0 = time.perf_counter()
     checks = run_across(a.ranks, backend=backend, device_type=a.device, n=a.n, t=a.t,
                         n_big=a.n_big, t_big=a.t_big)
@@ -565,7 +561,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    card = snlg.card_line()
+    card = card_line()
     with process_group("nccl"):
         _, runs, counts = fused_runs(device)
         for name, (_, hist, s) in runs.items():

@@ -29,13 +29,7 @@ import sys
 
 import torch
 
-from particle_filters_tpu_torch.benchmarks.snlg import (
-    _sync,
-    _timed,
-    card_line,
-    profile_top,
-    run_flow,
-)
+from particle_filters_tpu_torch.benchmarks.snlg import _timed, profile_top, run_flow
 from particle_filters_tpu_torch.core.linalg import mvn_logpdf_chol
 from particle_filters_tpu_torch.models import (
     EDHConfig,
@@ -50,6 +44,7 @@ from particle_filters_tpu_torch.models import (
 )
 from particle_filters_tpu_torch.models.extended_kalman_filter import _jacfwd
 from particle_filters_tpu_torch.simulators.sensor_network_skewt import load_npz
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "skewt_d144.npz"
 D, T, TRIALS = 144, 10, 100
@@ -173,7 +168,7 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
     for tag, kind, n in flows:
         filt, noise = make_flow(kind, n, Sigma, LQ)
         run_flow(filt, noise, Z[:, :1], Sigma, gen)  # warm-up
-        _sync(device)
+        sync(device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         secs, (hist, launches) = _timed(lambda: run_flow(filt, noise, Z, Sigma, gen),

@@ -21,7 +21,6 @@ a sync. Sizes are arguments, so the CPU tests run the column at a toy size.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
@@ -43,6 +42,7 @@ from particle_filters_tpu_torch.models import (
 )
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
 from particle_filters_tpu_torch.simulators.sensor_network_lg import make_grid_coords, se_kernel_cov
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 D, T, TRIALS, SZ, AL = 64, 50, 100, 2.0, 0.9
 # The JAX package's MSEs at this column (benchmarks/results.json, results.snlg_d64).
@@ -76,18 +76,13 @@ def make_data(trials: int = TRIALS, steps: int = T, d: int = D):
     return Sigma.numpy(), block(SZ), block(1.0)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _timed(fn, warm, device):
     """``warm()`` once, then ``fn()`` timed to a sync: (seconds, result)."""
     warm()
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     out = fn()
-    _sync(device)
+    sync(device)
     return time.perf_counter() - t0, out
 
 
@@ -156,7 +151,7 @@ def profile_top(fn, device, top: int = 8):
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
-        _sync(device)
+        sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -231,13 +226,6 @@ def print_column(res, card: str, trials: int = TRIALS, steps: int = T) -> None:
                   f"({r['profile_device_ms'] / r['profile_wall_ms']:.3f}); top device ops:")
         for ms, count, key in r.get("top_ops", []):
             print(f"    {ms:9.3f} ms  x{count:<6d} {key[:90]}")
-
-
-def card_line() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def main() -> int:

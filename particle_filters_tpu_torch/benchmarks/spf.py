@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from particle_filters_tpu_torch.benchmarks._stats import paired_z, summary, welch_z
-from particle_filters_tpu_torch.benchmarks.snlg import _timed, card_line, print_profile
+from particle_filters_tpu_torch.benchmarks.snlg import _timed, print_profile
 from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
 from particle_filters_tpu_torch.models.stochastic_particle_filter import (
     LinearGaussianBayes,
@@ -49,6 +49,7 @@ from particle_filters_tpu_torch.models.stochastic_particle_filter import (
     solve_beta_star_bisection,
 )
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
+from particle_filters_tpu_torch.utils.timing import card_line
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "spf_example2.npz"
 # Example 1 (the notebook's numbers).

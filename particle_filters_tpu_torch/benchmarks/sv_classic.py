@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from particle_filters_tpu_torch.benchmarks._stats import P_MIN, summary, welch_z
-from particle_filters_tpu_torch.benchmarks.snlg import _sync, card_line
 from particle_filters_tpu_torch.models import (
     ExtendedKalmanFilter,
     ParticleFilter,
@@ -34,6 +33,7 @@ from particle_filters_tpu_torch.models import (
     make_ukf_state,
 )
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
+from particle_filters_tpu_torch.utils.timing import card_line, sync
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "sv_t2000.npz"
 T, ALPHA, SIGMA, BETA, N_PF = 2000, 0.95, 0.2, 1.0, 2000
@@ -73,10 +73,10 @@ def run_kalman(device, data, t=T):
             return filt.run(make(torch.zeros(1), torch.eye(1), device=device), z)[1][:, 0]
 
         run(y_log[:2])
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         means = run(y_log)
-        _sync(device)
+        sync(device)
         out[name] = {"means": means, "rmse": _rmse(means, X), "s": time.perf_counter() - t0}
     return out
 
@@ -96,10 +96,10 @@ def run_pf(device, data, t=T, n=N_PF, seeds=SEEDS):
     for seed in range(seeds):
         gen = torch.Generator(device=device).manual_seed(seed)
         st = pf.initialize(gen, [0.0], [[var0]])
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         _, hist = pf.run(gen, st, zs)
-        _sync(device)
+        sync(device)
         secs.append(time.perf_counter() - t0)
         rmses.append(_rmse(hist["mean"][:, 0], X))
         steps += int(hist["resampled"].sum())

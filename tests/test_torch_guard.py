@@ -1,5 +1,7 @@
 """The port imports torch and never jax: checked on its sources and by
-importing every module with ``jax`` blocked, in a fresh interpreter."""
+importing every module with ``jax`` blocked, in a fresh interpreter, where
+importing prints nothing (nothing runs at import: the examples' and the
+benchmarks' work sits behind ``__main__``) and pulls in no matplotlib."""
 
 import pathlib
 import re
@@ -23,6 +25,8 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.startswith("particle_filters_tpu.")
                 or m == "particle_filters_tpu")
 assert not leaked, leaked
+assert "matplotlib" not in sys.modules
+assert any(n.endswith(".examples.ex15_pf_degeneracy_analysis") for n in names)
 print(len(names))
 """
 
