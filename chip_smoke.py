@@ -21,6 +21,14 @@ super-groups get NaN). Then:
   when ESS < N/2) through ``FusedSIRFilter`` and through the general
   ``ParticleFilter``, checked, with B1 and B2 counted, and a run that
   never resamples, which must launch B1 and no other kernel per step;
+- the entry path (``particle_filters_tpu_torch/entry.py``): ``entry()``'s
+  one fused step at N = 2^20 (B1 launched once, B2 as often as it
+  resampled, a finite state, 0 < ESS <= N), its posterior mean within 5
+  combined standard errors of ``entry_generic()``'s step at N = 65536, the
+  step's median time over 20 CUDA-event timings; then
+  ``dryrun_multichip`` over the visible cards (one NCCL rank a card, a
+  process of its own): the four phases' asserts, B1 and B2 launched in its
+  fused phase;
 - the exact path: the run ends at N = 2^25 on the card bit-equal to the
   same call on the CPU (lognormal sigma = 2 and a point mass), and
   ``FusedSIRFilter`` on the SV model at N = 2^25, T = 50 (B1, and B2 on
@@ -88,7 +96,9 @@ super-groups get NaN). Then:
   unsharded flow; the sharded DPF train step (8 SV sequences, N = 100,
   T = 100) equal to the unsharded step; the collectives' host cost;
 - the sv_classic column uncut (EKF, UKF, the SIR PF at N = 2000, T = 2000)
-  and the nlngssm column (EDH, LEDH, KPF at N = 500) cut to its first 100
+  through the harness (``benchmarks.run_benchmarks``, to a temporary file:
+  its record's keys the JAX record's less ``reference*``, the card fields
+  filled) and the nlngssm column (EDH, LEDH, KPF at N = 500) cut to its first 100
   steps, each against the JAX package's committed values (Kalman RMSEs
   within 1e-3, the others by Welch tests over seeds, p >= 1e-3);
 - the north-star scripts: the bench twin (``benchmarks.bench``: the main
@@ -103,7 +113,8 @@ super-groups get NaN). Then:
   printed, each held to its module's gates (ex15's boundary resample
   fractions exactly 0 and 1; ex14's EKF/UKF RMSEs within 1e-3 of the JAX
   package's and its PF RMSEs against the JAX package's 8 keys; ex01's mean
-  NEES in the chi^2 band; ex12's variance reductions; ex11's linear beta
+  NEES in the chi^2 band; ex12's variance reductions, and its diagonal
+  kernel in float64 at jitter 1e-5 reducing both >= 0.85; ex11's linear beta
   below beta*, and beta* on the card equal to the CPU's within 3e-7; ex08's
   finite cells and best cell within 5 standard errors of the JAX package's;
   ex07's decreasing loss and final a), B2 counted on the PF rows;
@@ -139,6 +150,7 @@ import torch
 
 import torch.distributed as dist
 
+from particle_filters_tpu_torch import entry
 from particle_filters_tpu_torch.benchmarks import (
     bench,
     dpf,
@@ -149,6 +161,7 @@ from particle_filters_tpu_torch.benchmarks import (
     nlngssm,
     ot_large,
     profile_small_n,
+    run_benchmarks,
     scaling_curve,
     sharded,
     skewt,
@@ -167,6 +180,7 @@ from particle_filters_tpu_torch.examples import (
     ex15_pf_degeneracy_analysis as ex15,
 )
 from particle_filters_tpu_torch.models import ParticleFilter
+from particle_filters_tpu_torch.models.kernel_particle_filter import FACTOR_RESID_MAX
 from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
 from particle_filters_tpu_torch.ops import span_resample as x2
@@ -189,6 +203,7 @@ from particle_filters_tpu_torch.resampling.hard import (
     batched_starts,
 )
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
+from particle_filters_tpu_torch.utils.timing import card as card_of
 from particle_filters_tpu_torch.utils.timing import kernel_records
 
 N = 1 << 20
@@ -204,12 +219,6 @@ EXACT_N, EXACT_T = 1 << 25, 50  # the exact path: past the f32 run ends' 2^24
 # and LEDH-200, EDH-10000), MAT's EDH d = 16 over its 16 seeds of 500.
 B2_TRIAL_SHAPES = ((100, 200, 64), (100, 10000, 64), (100, 200, 144), (100, 10000, 144),
                    (16, 500, 16))
-SNLG_MSE_RTOL = {"kf": 1e-3, "kf_sz1": 1e-3, "ukf": 1e-3,
-                 "edh200": 0.05, "ledh200": 0.05, "edh10000": 0.05}
-# Skew-t: the EKF and UKF within 1e-3 of the JAX package's MSE on the same
-# data; the flows within 5 % of its CPU MSE (EDH-200's own spread over 8 flow
-# keys is 2.4 %, so 5 % stands).
-SKEWT_MSE_RTOL = {"ekf": 1e-3, "ukf": 1e-3, "edh200": 0.05, "edh10000": 0.05, "ledh200": 0.05}
 # MAT's flows: the port's OMATs against the JAX package's 16 by a two-sided
 # rank test; a p under this flags a shift of the port's flow, not chance.
 MAT_RANK_P = 1e-3
@@ -235,6 +244,7 @@ SCALING_REPS = 1
 EX15_T, EX15_SEEDS = 500, 4
 EX14_PF_SEEDS = 3
 EX01_SEEDS = 4
+ENTRY_SE, ENTRY_REPS = 5.0, 20  # entry() against entry_generic(); its timed calls
 EX11_BETA_TOL = 3e-7  # beta* on the card against the CPU port, from the same M0 and Mh
 A2 = [[0.9, 0.1], [0.0, 0.8]]  # nx = 2 linear model of the B1 checks
 Q2 = [[0.05, 0.01], [0.01, 0.02]]
@@ -633,6 +643,55 @@ def run_main_path(n, device):
     return counts, (f, gen, state0, zs)
 
 
+def run_entry_path(device, card):
+    """``entry.entry()`` (one fused step at N = 2^20: B1 launched once, B2
+    as often as the step resampled, counted just before and after the
+    step), its posterior mean within ``ENTRY_SE`` combined standard errors
+    of ``entry_generic()``'s on the card, the step's median CUDA-event time
+    over ``ENTRY_REPS`` calls after a warm-up; then ``dryrun_multichip``
+    over the visible cards (one NCCL rank a card), with B1 and B2 launched
+    in its fused phase. Returns the launches by part."""
+    step_fn, args = entry.entry(device)
+    fused_step.launches = 0
+    b2.resample_by_starts.launches = 0
+    (x, lw, _), info = step_fn(*args)
+    counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches}
+    ess = float(info["ess"])
+    _check(counts == {"B1": 1, "B2": int(bool(info["resampled"]))},
+           f"entry(): launches {counts}, resampled {bool(info['resampled'])}")
+    _check(bool(torch.isfinite(x).all() and torch.isfinite(lw).all())
+           and all(bool(torch.isfinite(v.float()).all()) for v in info.values()),
+           "entry(): finite state and row")
+    _check(0 < ess <= entry.N_ENTRY, f"entry(): 0 < ESS {ess} <= {entry.N_ENTRY}")
+    m_f, se_f = float(info["mean"][0]), math.sqrt(float(info["cov"][0, 0]) / ess)
+    gen_fn, gen_args = entry.entry_generic(device)
+    st = gen_fn(*gen_args)
+    ess_g = float(1 / torch.sum(torch.exp(2 * st.log_weights.double())))
+    m_g, se_g = float(st.mean[0]), math.sqrt(float(st.cov[0, 0]) / ess_g)
+    _check(abs(m_f - m_g) <= ENTRY_SE * math.hypot(se_f, se_g),
+           f"entry() mean {m_f} within {ENTRY_SE} SE of entry_generic()'s {m_g}")
+    times = []
+    for i in range(ENTRY_REPS + 1):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step_fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        if i:  # the first call is the warm-up
+            times.append(t0.elapsed_time(t1))
+    print(f"entry(): fused step N={entry.N_ENTRY}, B1 x{counts['B1']}, B2 x{counts['B2']}, "
+          f"ESS {ess:.1f}, mean {m_f:.6f} ± {se_f:.6f} (entry_generic N={entry.N_GENERIC}: "
+          f"{m_g:.6f} ± {se_g:.6f}); {statistics.median(times):.4f} ms a step (median of "
+          f"{ENTRY_REPS}, CUDA events)  [{card}]")
+    t0 = time.perf_counter()
+    r = entry.dryrun_multichip(torch.cuda.device_count(), device)
+    dry = r["launches"]
+    _check(dry["B1"] > 0 and dry["B2"] > 0, f"dry run's fused phase: B1 and B2 launched, {dry}")
+    print(f"dryrun_multichip({torch.cuda.device_count()}): {time.perf_counter() - t0:.1f} s with "
+          f"the rank's start; fused phase launches {dry}  [{card}]")
+    return {"entry": counts, "dryrun": dry}
+
+
 def check_step_launches(n, device):
     """Runs that never resample launch B1 once a step and no other kernel
     of their own a step: the other kernels (the run's set-up and history)
@@ -734,10 +793,7 @@ def run_snlg_path(device, card):
     res = snlg.run_column(device, profile=("edh10000", "ledh200"))
     launches = sum(res[tag]["b2_launches"] for tag, _, _ in snlg.FLOWS)
     snlg.print_column(res, card)
-    for tag, r in res.items():
-        want, rtol = snlg.JAX_MSE[tag], SNLG_MSE_RTOL[tag]
-        _check(abs(r["mse"] - want) <= rtol * want,
-               f"SNLG {tag}: MSE {r['mse']} within {rtol} of the JAX package's {want}")
+    _gates("SNLG", snlg.gates(res))
     for tag, _, _ in snlg.FLOWS:
         r = res[tag]
         _check(r["b2_launches"] == r["resample_steps"] > 0,
@@ -761,17 +817,9 @@ def run_skewt_path(device, card):
     before each flow's timed run and read just after (``snlg.run_flow``)."""
     res = skewt.run_column(device, profile=("edh10000", "ledh200"))
     skewt.print_column(res, card)
-    for tag, r in res.items():
-        want, rtol = skewt.JAX_MSE[tag], SKEWT_MSE_RTOL[tag]
-        _check(abs(r["mse"] - want) <= rtol * want,
-               f"skew-t {tag}: MSE {r['mse']} within {rtol} of the JAX package's {want}")
-    for tag, _, n in skewt.FLOWS:
-        r = res[tag]
-        _check(r["finite"], f"skew-t {tag}: finite history")
-        tol = skewt.ess_tol(tag, n)
-        _check(abs(r["ess"] - n) <= tol,
-               f"skew-t {tag}: post-resample ESS {r['ess']} within {tol} of N = {n}")
-        _flow_launches(f"skew-t {tag}", r)
+    _gates("skew-t", skewt.gates(res))
+    for tag, _, _ in skewt.FLOWS:
+        _flow_launches(f"skew-t {tag}", res[tag])
     launches = sum(res[tag]["b2_launches"] for tag, _, _ in skewt.FLOWS)
     print(f"skew-t path: B2 launched {launches} times in the flows' timed runs; LEDH-200 "
           f"peak {res['ledh200']['peak_mib']:.0f} MiB allocated (all 100 trials in one "
@@ -785,23 +833,7 @@ def run_mat_path(device, card):
     set to 0 just before each flow's timed run and read just after."""
     res = mat.run_column(device)
     mat.print_column(res, card)
-    for tag in ("ekf", "ukf"):
-        want, rtol = mat.JAX_OMAT[tag], mat.kalman_rtol(tag)
-        _check(abs(res[tag]["omat"] - want) <= rtol * want,
-               f"MAT {tag}: OMAT {res[tag]['omat']} within {rtol} of the JAX package's {want}")
-    for tag in mat.FLOWS:
-        r, (q1, jmed, q3) = res[tag], mat.JAX_FLOW_QUARTILES[tag]
-        _check(r["finite"], f"MAT {tag}: finite history")
-        _check(q1 <= r["median"] <= q3,
-               f"MAT {tag}: median OMAT {r['median']} inside the JAX package's quartiles "
-               f"[{q1}, {q3}]")
-        for kf in ("ekf", "ukf"):
-            if jmed < mat.JAX_OMAT[kf]:  # the table's finding, where the JAX package shows it
-                _check(r["median"] < res[kf]["omat"],
-                       f"MAT {tag}: median OMAT {r['median']} below the {kf}'s {res[kf]['omat']}")
-            else:
-                print(f"MAT {tag} vs {kf}: not held; the JAX package's own median "
-                      f"{jmed:.4f} is not below its {kf} OMAT {mat.JAX_OMAT[kf]:.4f}")
+    _gates("MAT", mat.gates(res))
     _flow_launches("MAT edh", res["edh"])
     _check(res["ledh"]["b2_launches"] == res["ledh"]["resampled"] == 0,
            "MAT ledh: never resamples, B2 never launched")
@@ -1257,11 +1289,7 @@ def run_spf_path(device, card):
           f"{solve2_s:.4f} s; card vs CPU beta {db2:.3e}, beta' {dd2:.3e}  [{card}]")
     ex2 = spf.run_example2(device, steps=SPF_EX2_STEPS)
     spf.print_columns(ex1, ex2, card)
-    for mode, r in ex1.items():
-        _check(r["finite"], f"SPF example 1 {mode}: finite")
-        z, p = spf.ex1_against_jax(mode, r["rmses"])
-        _check(p >= P_MIN, f"SPF example 1 {mode}: RMSEs against the JAX package's, z {z}, "
-               f"p {p} >= {P_MIN}")
+    _gates("SPF example 1", spf.ex1_gates(ex1))
     for name, r in ex2.items():
         _check(r["finite"], f"SPF example 2 {name}: finite")
         tests = spf.ex2_against_jax(name, r)
@@ -1286,15 +1314,8 @@ def run_dpf_path(device, card):
     nl = dpf.run_nonlinear(device)
     held = dpf.run_heldout(device)
     dpf.print_columns(lin, nl, held, card)
-    for column, res in (("dpf_linear", lin), ("dpf_nonlinear", nl)):
-        for tag in ("soft", "ot", "rnn"):
-            r = res[tag]
-            _check(all(math.isfinite(x) for x in r["rmses"]), f"{column} {tag}: finite RMSEs")
-            z, p = dpf.against_jax(column, tag, r["rmses"])
-            _check(p >= P_MIN, f"{column} {tag}: RMSEs against the JAX package's, z {z}, "
-                   f"p {p} >= {P_MIN}")
-    t = lin["train"]
-    _check(math.isfinite(t["last_loss"]), "dpf_linear RNN training: finite loss")
+    _gates("dpf_linear", dpf.gates("dpf_linear", lin))
+    _gates("dpf_nonlinear", dpf.gates("dpf_nonlinear", nl))
     _check(held["ratio"] >= dpf.NLL_RATIO,
            f"held-out NLL: baseline / trained {held['ratio']} >= {dpf.NLL_RATIO}")
 
@@ -1308,10 +1329,7 @@ def run_ot_path(device, card):
     _check(dense["max_abs_diff"] <= OT_DENSE_TOL,
            f"OT dense vs blockwise at N={dense['n']}: {dense['max_abs_diff']} <= "
            f"{OT_DENSE_TOL}")
-    for n, r in res.items():
-        _check(r["finite"], f"ot_large N={n}: finite")
-        bound = ot_large.mean_err_bound(n)
-        _check(r["mean_err"] <= bound, f"ot_large N={n}: mean error {r['mean_err']} <= {bound}")
+    _gates("ot_large", ot_large.gates(res))
     return res
 
 
@@ -1510,18 +1528,31 @@ def run_sv_columns(device, card):
     each held to the JAX package's committed values by its module's gates.
     B2's count is set to 0 just before the PF runs and read just after."""
     data = sv_classic.load_data(device)
-    res = sv_classic.run_column(device, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        record, gates, res = run_benchmarks.run_columns(["sv_classic"], device, out)["sv_classic"]
+        with open(out) as f:
+            written = json.load(f)
     sv_classic.print_column(res, data, card)
-    for row, (value, ref, held) in sv_classic.gates(res, data).items():
-        _check(held, f"sv_classic {row}: {value} against the JAX package's {ref}")
+    _gates("sv_classic", gates)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
+                           "results.json")) as f:
+        jax_keys = {k for k in json.load(f)["results"]["sv_classic"]
+                    if not k.startswith("reference")}
+    _check(set(written["results"]["sv_classic"]) == set(record) == jax_keys,
+           f"harness record keys {sorted(record)} == the JAX record's {sorted(jax_keys)}")
+    _check([written[k] for k in ("backend", "device", "power_limit_w")]
+           == ["cuda", *card_of(device)],
+           f"harness card fields {[written[k] for k in ('backend', 'device', 'power_limit_w')]}")
+    print(f"sv_classic through the harness: record keys as the JAX record's less reference*, "
+          f"backend {written['backend']}, device {written['device']}, power limit "
+          f"{written['power_limit_w']} W")
     r = res["pf"]
     _check(r["b2_launches"] == r["resample_steps"] > 0,
            f"sv_classic pf: B2 launched {r['b2_launches']}, want {r['resample_steps']} > 0")
     res_n = nlngssm.run_column(device, data, t=nlngssm.T_CUT)
     nlngssm.print_column(res_n, data, card)
-    for row, (p, p_min, held) in nlngssm.gates(res_n, data, cut=True).items():
-        _check(held, f"nlngssm {row} (first {nlngssm.T_CUT} steps): RMSEs against the JAX "
-                     f"package's, Welch p {p} >= {p_min}")
+    _gates(f"nlngssm (first {nlngssm.T_CUT} steps)", nlngssm.gates(res_n, data, cut=True))
     return {"B2": r["b2_launches"]}
 
 
@@ -1587,6 +1618,23 @@ def run_examples_path(device, card):
     res = timed("ex12", lambda: ex12.run_all(device))
     ex12.print_tables(res, card)
     _gates("ex12", ex12.gates(res))
+    red64 = ex12.diagonal_f64(device, jitter=1e-5)
+    _check(min(red64) >= ex12.F64_MIN_RED,
+           f"ex12 diagonal kernel in float64 at jitter 1e-5: reductions {red64} >= "
+           f"{ex12.F64_MIN_RED}")
+    print(f"ex12 diagonal kernel, variance reduction (observed, unobserved): float64 at jitter "
+          f"1e-5 (cuSOLVER f64) {100 * red64[0]:.2f} / {100 * red64[1]:.2f} %; float32 as a "
+          f"user runs it (jitter {res['kpf']['diagonal']['rung']:g}) "
+          f"{100 * res['reduction']['diagonal'][0]:.2f} / "
+          f"{100 * res['reduction']['diagonal'][1]:.2f} %  [{card}]")
+    resid = ex12.diagonal_factor_residuals(device)
+    _check(resid[1e-5] > FACTOR_RESID_MAX >= resid[1e-4]
+           and math.isclose(res["kpf"]["diagonal"]["rung"], 1e-4, rel_tol=1e-6),
+           f"ex12 diagonal prior factor residuals {resid} (bound {FACTOR_RESID_MAX}), rung "
+           f"{res['kpf']['diagonal']['rung']}: the ladder rejects 1e-5 and takes 1e-4")
+    print(f"ex12 diagonal prior factor in float32 (cuSOLVER): residual {resid[1e-5]:.4f} at "
+          f"jitter 1e-5 (rejected), {resid[1e-4]:.4f} at 1e-4 (taken); bound "
+          f"{FACTOR_RESID_MAX}  [{card}]")
     res = timed("ex11", lambda: ex11.run_all(device))
     ex11.print_tables(res, card)
     _gates("ex11", ex11.gates(res))
@@ -1654,6 +1702,7 @@ def main() -> None:
 
     counts, fused_run = run_main_path(N, device)
     check_step_launches(N, device)
+    entry_counts = run_entry_path(device, card)
     exact_counts = run_exact_path(device, card)
     snlg_counts = run_snlg_path(device, card)
     skewt_counts = run_skewt_path(device, card)
@@ -1668,7 +1717,7 @@ def main() -> None:
     sv_counts = run_sv_columns(device, card)
     north_counts, bench_ms = run_north_star(device, card)
     ex_counts = run_examples_path(device, card)
-    print(f"launches by path: main {counts}, exact {exact_counts}, SNLG {snlg_counts}, "
+    print(f"launches by path: main {counts}, entry {entry_counts}, exact {exact_counts}, SNLG {snlg_counts}, "
           f"skew-t {skewt_counts}, MAT {mat_counts}, SPF {spf_counts}, DPF {{}}, OT {{}}, "
           f"run_chunked {chunked_counts}, parallel {par_counts}, sv_classic {sv_counts}, "
           f"nlngssm {{}}, north_star {north_counts}, examples {ex_counts}")

@@ -25,7 +25,10 @@
 - ``dpf``: the differentiable PFs' ``dpf_linear`` and ``dpf_nonlinear``
   columns (soft, OT, RNN, the trained RNN) and the held-out check of the
   committed trained resampler;
-- ``ot_large``: blockwise Sinkhorn-OT resampling at N = 4096, 16384, 65536.
+- ``ot_large``: blockwise Sinkhorn-OT resampling at N = 4096, 16384, 65536;
+- ``run_benchmarks``: the harness, the twin of ``benchmarks/run_benchmarks.py``:
+  the nine columns above by the JAX package's names, merged into one record
+  (the card's is ``results.json`` here).
 
 ``skewt``, ``mat``, ``kpf``, ``spf`` and ``dpf`` read the JAX package's data
 from ``data/``.

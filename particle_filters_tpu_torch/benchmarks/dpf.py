@@ -43,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.benchmarks._stats import welch_z
+from particle_filters_tpu_torch.benchmarks._stats import P_MIN, welch_z
 from particle_filters_tpu_torch.benchmarks.snlg import _timed, print_profile
 from particle_filters_tpu_torch.models.dpf import (
     DPF_OT,
@@ -334,6 +334,22 @@ def against_jax(column, tag, rmses):
     """(z, p) of a row's RMSEs against the JAX package's 64 keys."""
     mean, sd, n, _ = JAX_STATS[column][tag]
     return welch_z(rmses, mean, sd, n)
+
+
+def gates(column, res) -> dict:
+    """``{gate: (value, held)}`` of ``dpf_linear`` or ``dpf_nonlinear``:
+    each row's RMSEs finite and against the JAX package's 64 keys
+    (p ≥ ``P_MIN``); the trained RNN's final training loss finite."""
+    out = {}
+    for tag in ("soft", "ot", "rnn"):
+        rmses = res[tag]["rmses"]
+        out[f"{tag} finite RMSEs"] = (rmses, all(np.isfinite(rmses)))
+        z, p = against_jax(column, tag, rmses)
+        out[f"{tag} RMSEs against the JAX package's, p >= {P_MIN}"] = (p, p >= P_MIN)
+    if "train" in res:
+        loss = res["train"]["last_loss"]
+        out["trained RNN finite loss"] = (loss, bool(np.isfinite(loss)))
+    return out
 
 
 def print_columns(lin, nl, held, card=""):

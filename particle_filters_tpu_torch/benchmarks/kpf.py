@@ -24,10 +24,13 @@ Without localization the prior covariance B has rank 19 plus a 2e-6
 ridge, and f32 rounding leaves eigenvalues of B + reg·I near −3e-6, so
 ``chol_with_jitter`` factorizes it only at a jitter rung that the
 factorization itself decides: LAPACK's f32 Cholesky (the JAX package's on
-the CPU, and the port's there) accepts 1e-4 first, cuSOLVER's on the
-card may accept 1e-5, and B⁻¹ differs by up to 10× in 981 directions. So
-each case runs twice: once as a user runs it (the ladder; its rung, step
-count and difference from the JAX package's posterior are reported), and
+the CPU, and the port's there) accepts 1e-4 first; cuSOLVER's on the
+card returns a finite factor at 1e-5 whose inverse is far from B's, which
+``KernelParticleFilter.prior_factor``'s residual check rejects, so the
+card takes 1e-4 too; B⁻¹ differs by up to 10× in 981 directions between
+the rungs. So each case runs twice: once as a user runs it (the ladder;
+its rung, step count and difference from the JAX package's posterior are
+reported), and
 once with the factor's jitter pinned at the JAX package's rung, which is
 held against the JAX package's posterior. A one-ulp change of the prior
 moves the JAX package's own posterior by the RMS in ``JAX_ULP_RMS``; the

@@ -242,6 +242,33 @@ def run_column(device="cuda", data=None, seeds: int = SEEDS, n_particles: int = 
     return out
 
 
+def gates(res) -> dict:
+    """``{gate: (value, held)}``: the EKF's and UKF's OMAT within
+    ``kalman_rtol`` of the JAX package's; each flow's history finite, its
+    median OMAT inside the JAX package's quartiles, and below each Kalman
+    row's where the JAX package's median is below that row's (where it is
+    not, the comparison is listed as not made, value None, held)."""
+    out = {}
+    for tag in ("ekf", "ukf"):
+        want, rtol = JAX_OMAT[tag], kalman_rtol(tag)
+        out[f"{tag} OMAT within {rtol:.3g} of the JAX package's {want}"] = (
+            res[tag]["omat"], abs(res[tag]["omat"] - want) <= rtol * want)
+    for tag in FLOWS:
+        r, (q1, jmed, q3) = res[tag], JAX_FLOW_QUARTILES[tag]
+        out[f"{tag} finite history"] = (r["finite"], r["finite"])
+        out[f"{tag} median OMAT inside the JAX package's quartiles [{q1}, {q3}]"] = (
+            r["median"], q1 <= r["median"] <= q3)
+        for kf in ("ekf", "ukf"):
+            if jmed < JAX_OMAT[kf]:  # the table's finding, where the JAX package shows it
+                out[f"{tag} median OMAT below the {kf}'s"] = (
+                    r["median"], r["median"] < res[kf]["omat"])
+            else:
+                out[f"{tag} median OMAT below the {kf}'s: not compared, the JAX package's "
+                    f"median {jmed:.4f} is not below its {kf} OMAT {JAX_OMAT[kf]:.4f}"] = (
+                    None, True)
+    return out
+
+
 def print_column(res, card: str) -> None:
     for tag, r in res.items():
         if "omats" in r:
@@ -255,6 +282,9 @@ def print_column(res, card: str) -> None:
             want = JAX_OMAT.get(tag)
             ref = "" if want is None else f" (JAX CPU {want:.5f})"
             print(f"MAT {tag:4s}: {r['total_s']:.4f} s, OMAT {r['omat']:.5f}{ref}  [{card}]")
+    for gate, (value, _) in gates(res).items():
+        if value is None:
+            print(f"MAT {gate}")
 
 
 def main() -> int:

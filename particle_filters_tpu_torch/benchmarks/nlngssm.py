@@ -140,28 +140,37 @@ def run_column(device="cuda", data=None, t=T, n=N, seeds=SEEDS, names=NAMES):
 
 
 def gates(res, data, cut=False):
-    """``{name: (Welch p, P_MIN, held)}`` against the JAX package's 8 keys
-    over T (``cut``: over its runs' first ``T_CUT`` steps)."""
+    """``{gate: (Welch p, held)}``: each filter's RMSEs against the JAX
+    package's 8 keys over T (``cut``: over its runs' first ``T_CUT``
+    steps), p ≥ ``P_MIN``."""
     out = {}
     for name in NAMES:
         if name in res:
-            ref = [float(v) for v in data[f"jax_{name}_rmse" + ("_cut" if cut else "")]]
-            _, p = welch_z(res[name]["rmses"], *summary(ref))
-            out[name] = (p, P_MIN, p >= P_MIN)
+            p = welch_p(res, data, name, cut)
+            out[f"{name} RMSEs against the JAX package's 8 keys, Welch p >= {P_MIN}"] = (
+                p, p >= P_MIN)
     return out
+
+
+def _jax_rmses(data, name, cut):
+    return [float(v) for v in data[f"jax_{name}_rmse" + ("_cut" if cut else "")]]
+
+
+def welch_p(res, data, name, cut=False) -> float:
+    """The Welch p of ``name``'s RMSEs against the JAX package's 8 keys."""
+    return welch_z(res[name]["rmses"], *summary(_jax_rmses(data, name, cut)))[1]
 
 
 def print_column(res, data, card: str) -> None:
     t = res["t"]
-    g = gates(res, data, cut=t == T_CUT)
     for name in NAMES:
         if name not in res:
             continue
         mean, sd, n = summary(res[name]["rmses"])
-        ref = data[f"jax_{name}_rmse" + ("_cut" if t == T_CUT else "")]
-        jm, jsd, jn = summary([float(v) for v in ref])
+        jm, jsd, jn = summary(_jax_rmses(data, name, t == T_CUT))
         print(f"nlngssm {name} N={N} T={t}: RMSE {mean:.4f} ± {sd:.4f} over {n} seeds (JAX "
-              f"package {jm:.4f} ± {jsd:.4f}, {jn} keys), Welch p {g[name][0]:.4f}; "
+              f"package {jm:.4f} ± {jsd:.4f}, {jn} keys), Welch p "
+              f"{welch_p(res, data, name, t == T_CUT):.4f}; "
               f"{res[name]['s']:.3f} s ({'a run' if name == 'kpf' else f'{n} runs batched'})"
               f"  [{card}]")
 

@@ -104,6 +104,18 @@ def dense_vs_blockwise(device, n=DENSE_N, seed=1):
     return res
 
 
+def gates(res) -> dict:
+    """``{gate: (value, held)}``: each N's output finite and, at the N
+    where the JAX package has one, its mean error within ``mean_err_bound``."""
+    out = {}
+    for n, r in res.items():
+        out[f"N={n} finite"] = (r["finite"], r["finite"])
+        if n in JAX_MEAN_ERR:
+            out[f"N={n} mean error <= {mean_err_bound(n)}"] = (
+                r["mean_err"], r["mean_err"] <= mean_err_bound(n))
+    return out
+
+
 def print_rows(res, dense, card=""):
     for n, r in res.items():
         print(f"ot_large N={n}: {r['s']:.4f} s, peak {r['peak_mib']:.1f} MiB, mean error "

@@ -67,6 +67,10 @@ TPU_MSE = {"ekf": 1.1935306787490845, "ukf": 1.0248677730560303,
 TPU_ESS = {"edh200": 199.98606872558594, "edh10000": 10000.3623046875,
            "ledh200": 199.98606872558594}
 # (tag, filter, particles): bench_skewt's three flow rows.
+# The EKF and UKF within 1e-3 of the JAX package's MSE on the same data; the
+# flows within 5 % of its CPU MSE (EDH-200's own spread over 8 flow keys is
+# 2.4 %, so 5 % stands).
+MSE_RTOL = {"ekf": 1e-3, "ukf": 1e-3, "edh200": 0.05, "edh10000": 0.05, "ledh200": 0.05}
 FLOWS = (("edh200", "edh", 200), ("edh10000", "edh", 10000), ("ledh200", "ledh", 200))
 PROFILE_STEPS = 2  # the steps of a profiled flow run
 
@@ -185,6 +189,22 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
                 lambda: run_flow(filt, noise, Z[:, :PROFILE_STEPS], Sigma, gen), device)
             out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=wall_ms,
                             profile_device_ms=device_ms, top_ops=top)
+    return out
+
+
+def gates(res) -> dict:
+    """``{gate: (value, held)}``: each row's MSE within ``MSE_RTOL`` of the
+    JAX package's; each flow's history finite and its mean post-resample
+    ESS within ``ess_tol`` of N."""
+    out = {f"{tag} MSE within {MSE_RTOL[tag]} of the JAX package's {JAX_MSE[tag]}": (
+        r["mse"], abs(r["mse"] - JAX_MSE[tag]) <= MSE_RTOL[tag] * JAX_MSE[tag])
+        for tag, r in res.items()}
+    for tag, _, n in FLOWS:
+        if tag in res:
+            r, tol = res[tag], ess_tol(tag, n)
+            out[f"{tag} finite history"] = (r["finite"], r["finite"])
+            out[f"{tag} post-resample ESS within {tol} of N = {n}"] = (
+                r["ess"], abs(r["ess"] - n) <= tol)
     return out
 
 

@@ -49,6 +49,10 @@ D, T, TRIALS, SZ, AL = 64, 50, 100, 2.0, 0.9
 JAX_MSE = {"kf": 0.49578049778938293, "kf_sz1": 0.19176240265369415,
            "ukf": 0.49578049778938293, "edh200": 0.6473208069801331,
            "ledh200": 0.6485439538955688, "edh10000": 0.5348185300827026}
+# Each row's MSE is held within this relative band of JAX_MSE: the Kalman
+# rows are deterministic given the data, the flows sampled.
+MSE_RTOL = {"kf": 1e-3, "kf_sz1": 1e-3, "ukf": 1e-3,
+            "edh200": 0.05, "ledh200": 0.05, "edh10000": 0.05}
 # (tag, filter, particles): bench_snlg's three flow rows.
 FLOWS = (("edh200", "edh", 200), ("ledh200", "ledh", 200), ("edh10000", "edh", 10000))
 PROFILE_STEPS = 5  # the steps of a profiled flow run
@@ -209,6 +213,14 @@ def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
             out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=wall_ms,
                             profile_device_ms=device_ms, top_ops=top)
     return out
+
+
+def gates(res) -> dict:
+    """``{gate: (value, held)}``: each row's MSE within ``MSE_RTOL`` of the
+    JAX package's."""
+    return {f"{tag} MSE within {MSE_RTOL[tag]} of the JAX package's {JAX_MSE[tag]}": (
+        r["mse"], abs(r["mse"] - JAX_MSE[tag]) <= MSE_RTOL[tag] * JAX_MSE[tag])
+        for tag, r in res.items()}
 
 
 def print_column(res, card: str, trials: int = TRIALS, steps: int = T) -> None:

@@ -39,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.benchmarks._stats import paired_z, summary, welch_z
+from particle_filters_tpu_torch.benchmarks._stats import P_MIN, paired_z, summary, welch_z
 from particle_filters_tpu_torch.benchmarks.snlg import _timed, print_profile
 from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
 from particle_filters_tpu_torch.models.stochastic_particle_filter import (
@@ -237,6 +237,17 @@ def run_example2(device, steps=None):
 def ex1_against_jax(mode, rmses):
     """(z, p) of example 1's per-set RMSEs against the JAX package's."""
     return welch_z(rmses, *summary(JAX_EX1[mode]))
+
+
+def ex1_gates(ex1) -> dict:
+    """``{gate: (value, held)}`` of example 1: each row finite and its
+    per-set RMSEs against the JAX package's (p ≥ ``P_MIN``)."""
+    out = {}
+    for mode, r in ex1.items():
+        out[f"{mode} finite"] = (r["finite"], r["finite"])
+        z, p = ex1_against_jax(mode, r["rmses"])
+        out[f"{mode} RMSEs against the JAX package's, p >= {P_MIN}"] = (p, p >= P_MIN)
+    return out
 
 
 def jax_ex2(name, block, steps):

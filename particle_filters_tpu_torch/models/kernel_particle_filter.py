@@ -21,12 +21,32 @@ sizes is the JAX package's, so both take the same number of steps.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from particle_filters_tpu_torch.core.linalg import chol_solve, chol_with_jitter
+
+
+# The largest RMS residual ‖(B + reg·I + jitter·I)·(LLᵀ)⁻¹ − I‖_F / √n of
+# a prior factor L that the ladder accepts. The JAX package takes the first
+# finite rung; in float32 a finite factor of a rank-deficient B can still be
+# far from the matrix it factors. On the unlocalized Lorenz-96 prior
+# (``benchmarks/kpf.py``) the accepted rung 1e-4 reads 0.106 (LAPACK) and
+# 0.134 (cuSOLVER, H100); the rejected 1e-5 reads 3.28 (cuSOLVER, whose
+# posterior lost 60 of the 88 points of variance reduction) and 0.85 (the
+# float64 factor rounded to float32: 8 points lost). LAPACK refuses 1e-5.
+FACTOR_RESID_MAX = 0.25
+FACTOR_RETRIES = 3  # ladders restarted above a rejected rung (at ten times it)
+
+
+def factor_residual(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The RMS of A·(LLᵀ)⁻¹ − I (0-d): how far the inverse that the factor
+    L gives is from A's."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.matrix_norm(A @ chol_solve(L, eye) - eye) / math.sqrt(A.shape[-1])
 
 
 def gaspari_cohn(r) -> torch.Tensor:
@@ -165,15 +185,25 @@ class KernelParticleFilter:
 
     def prior_factor(self, B, jitter: Optional[float] = None):
         """The Cholesky factor of B + reg·I that ``analyze`` takes, and the
-        jitter it took (0-d): ``chol_with_jitter``'s ladder, or exactly
-        ``jitter`` where one is given. Without localization B has the rank
-        of the ensemble, so which rung factorizes depends on the Cholesky
-        routine (LAPACK's or cuSOLVER's)."""
+        jitter it took (0-d): exactly ``jitter`` where one is given, else
+        ``chol_with_jitter``'s ladder, whose first finite rung is taken if
+        its ``factor_residual`` is at most ``FACTOR_RESID_MAX`` (else the
+        ladder restarts at ten times that rung). Without localization B has
+        the rank of the ensemble, so which rung factorizes depends on the
+        Cholesky routine: LAPACK's refuses 1e-5 on the Lorenz-96 prior,
+        cuSOLVER's returns a finite factor there that the residual rejects."""
         eye = torch.eye(B.shape[0], dtype=B.dtype, device=B.device)
-        if jitter is None:
-            return chol_with_jitter(B + self.cfg.reg * eye, return_jitter=True)
-        return chol_with_jitter(B + self.cfg.reg * eye, jitter=jitter, max_tries=0,
-                                return_jitter=True)
+        B_reg = B + self.cfg.reg * eye
+        if jitter is not None:
+            return chol_with_jitter(B_reg, jitter=jitter, max_tries=0, return_jitter=True)
+        L, rung = chol_with_jitter(B_reg, return_jitter=True)
+        for _ in range(FACTOR_RETRIES):
+            resid = factor_residual(L, B_reg + rung * eye)
+            if not bool(torch.isfinite(resid)) or resid <= FACTOR_RESID_MAX:
+                break
+            L, rung = chol_with_jitter(B_reg, jitter=max(10 * float(rung), 1e-9),
+                                       return_jitter=True)
+        return L, rung
 
     def analyze(self, X, y, lengthscales=None, generator=None, *,
                 jitter: Optional[float] = None) -> KPFState:

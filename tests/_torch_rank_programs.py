@@ -16,11 +16,14 @@ import torch.distributed as dist
 from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core import linalg as tlin
 from particle_filters_tpu_torch.core import weights as tw
+from particle_filters_tpu_torch import entry
+from particle_filters_tpu_torch.entry import DRY_ALPHA0 as ALPHA0
+from particle_filters_tpu_torch.entry import DRY_SIGMA0 as SIGMA0
+from particle_filters_tpu_torch.entry import dpf_parts, dryrun_rank
 from particle_filters_tpu_torch.models import edh_particle_filter as tedh
 from particle_filters_tpu_torch.models import extended_kalman_filter as tekf
 from particle_filters_tpu_torch.models import ledh_particle_filter as tledh
 from particle_filters_tpu_torch.models import trackers as ttr
-from particle_filters_tpu_torch.models.particle_filter import ParticleFilter
 from particle_filters_tpu_torch.ops.fused_pf import SVModel
 from particle_filters_tpu_torch.parallel import (
     all_gather_systematic_resample,
@@ -114,13 +117,9 @@ def sleep_past(seconds):
 
 
 # --- the general SIR filter ------------------------------------------------
-def sv_pf(n, alpha=0.9, sigma=0.2, beta=1.0, **kw):
-    def obs_loglik(x, z):
-        var = beta**2 * torch.exp(x[0])
-        return -0.5 * (z[0] ** 2 / var + torch.log(var))
-
-    return ParticleFilter(lambda x, u: alpha * x, None, Q=[[sigma**2]], R=None, Np=n,
-                          obs_loglik=obs_loglik, device=CPU, **kw)
+def sv_pf(n, **kw):
+    """``entry.sv_pf`` on the CPU."""
+    return entry.sv_pf(n, CPU, **kw)
 
 
 def general_pf(zs, n, seed):
@@ -237,27 +236,6 @@ def flow_runs(cases, sys, zs, seed):
 
 
 # --- differentiable-PF training ------------------------------------------------
-ALPHA0, SIGMA0, BETA = 0.9, 0.25, 1.0
-
-
-def dpf_parts():
-    """The dry run's SV model: (transition_fn, obs_loglik_fn, init_fn, loss_fn)."""
-    def transition_fn(params, eps, particles):
-        return params["alpha"] * particles + torch.exp(params["log_sigma"]) * eps
-
-    def obs_loglik_fn(params, particles, y):
-        var = BETA**2 * torch.exp(particles[:, 0])
-        return -0.5 * (y[0] ** 2 / var + torch.log(var))
-
-    def init_fn(params, eps):
-        return torch.exp(params["log_sigma"]) * eps
-
-    def loss_fn(means, truth):
-        return torch.mean((means - truth) ** 2)
-
-    return transition_fn, obs_loglik_fn, init_fn, loss_fn
-
-
 def dpf_train(n_batch, n_particles, xs, ys, seed):
     """One sharded train step on an (n_batch, S / n_batch) mesh: the loss,
     the new parameters and their gradients; ``sharded_soft_resample`` on a
@@ -287,46 +265,10 @@ def dpf_train(n_batch, n_particles, xs, ys, seed):
 
 # --- the whole slice: the dry run's four phases ----------------------------------
 def dryrun(n_batch, seed, layout=(2, 2)):
-    """``dryrun_multichip``'s four phases at its sizes for a ``layout``
-    (batch, particles) mesh, run on this world's (n_batch, S/n_batch) mesh:
-    a DPF train step; the general SIR filter in neighbour mode resampling
-    every step; the fused filter resampling every step in all-gather mode;
-    the sharded EDH run."""
-    mesh = make_mesh(n_batch, device_type=CPU)
-    world = layout[0] * layout[1]
-    B, N, T = 2 * layout[0], 16 * layout[1], 4
-    rng = np.random.default_rng(seed)
-    xs = rng.standard_normal((B, T, 1)).astype(np.float32)
-    ys = (BETA * np.exp(0.5 * xs) * rng.standard_normal((B, T, 1))).astype(np.float32)
-    tr, ll, init, loss_fn = dpf_parts()
-    step = make_sharded_dpf_train_step(mesh, n_particles=N, dim=1, transition_fn=tr,
-                                       obs_loglik_fn=ll, init_fn=init, loss_fn=loss_fn)
-    params = {"alpha": torch.tensor(ALPHA0), "log_sigma": torch.tensor(math.log(SIGMA0))}
-    loss, new = step(params, torch.Generator().manual_seed(seed), torch.from_numpy(ys),
-                     torch.from_numpy(xs))
-
-    g = _world()
-    zs = torch.from_numpy(ys[0])
-    pf = sv_pf(16 * world, alpha=0.95, group=g, distributed_resample="neighbor",
-               resample_thresh=2.0)
-    gen = torch.Generator().manual_seed(seed + 7)
-    _, hist = make_sharded_pf_run(pf)(gen, pf.initialize(gen, [0.0], [[0.41]]), zs)
-
-    fpf = make_sharded_fused_pf(SVModel(0.9, 1.0), [[0.04]], Np=64 * world, mesh=g,
-                                resample_thresh=2.0, device=CPU)
-    gen = torch.Generator().manual_seed(seed + 11)
-    _, fh = make_sharded_fused_run(fpf)(gen, make_sharded_fused_init(fpf)(gen, [0.0], [[0.25]]),
-                                        zs)
-
-    sys = {"A": [[0.9, 0.1], [0.0, 0.8]], "C": np.eye(2), "Q": 0.04 * np.eye(2),
-           "R": 0.25 * np.eye(2)}
-    edh, _ = flow_filter("edh", dict(n_particles=16 * world, n_lambda_steps=3), sys, group=g)
-    gen = torch.Generator().manual_seed(seed + 21)
-    st = edh.init_from_gaussian(gen, torch.zeros(2), torch.eye(2))
-    ts = edh.tracker.init(torch.zeros(2), torch.eye(2))
-    zs_e = torch.from_numpy(rng.standard_normal((T, 2)).astype(np.float32))
-    _, _, eh = make_sharded_flow_run(edh)(gen, st, ts, zs_e)
-    return {"loss": loss, "alpha": new["alpha"], "pf": hist, "fused": fh, "edh": eh}
+    """``entry.dryrun_rank``: ``dryrun_multichip``'s four phases at the sizes
+    of a ``layout`` (batch, particles) mesh, run on this world's
+    (n_batch, S/n_batch) mesh."""
+    return dryrun_rank(n_batch, seed, layout, CPU)
 
 
 def filters_suite(pf_args, fused_args, flow_args):

@@ -219,8 +219,8 @@ def test_sv_classic_column_toy(data):
     assert all(np.isfinite(r) and r < 2.0 for r in res["pf"]["rmses"])
     assert res["pf"]["b2_launches"] == 0 and res["pf"]["resample_steps"] > 0
     gates = tsv.gates(res, data, full=False)
-    assert set(gates) == {"ekf", "ukf", "pf"}
-    assert all(np.isfinite(v) for v, _, _ in gates.values())
+    assert [g.split()[0] for g in gates] == ["ekf", "ukf", "pf"]
+    assert all(np.isfinite(v) for v, _ in gates.values())
 
 
 @pytest.mark.parametrize("name", ["edh", "ledh", "kpf"])
@@ -228,7 +228,8 @@ def test_nlngssm_column_toy(data, name):
     res = tnl.run_column("cpu", data, t=40, n=50, seeds=2, names=(name,))
     assert all(np.isfinite(r) and r < 2.0 for r in res[name]["rmses"])
     gates = tnl.gates(res, data, cut=True)
-    assert set(gates) == {name} and np.isfinite(gates[name][0])
+    assert [g.split()[0] for g in gates] == [name]
+    assert all(np.isfinite(p) for p, _ in gates.values())
 
 
 if __name__ == "__main__":
