@@ -68,6 +68,7 @@ from particle_filters_tpu_torch.core.weights import (
 )
 from particle_filters_tpu_torch.models.trackers import GaussianTracker, TrackerState
 from particle_filters_tpu_torch.resampling.hard import systematic_resample_values_batched
+from particle_filters_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,52 +283,56 @@ class _FlowPF:
     def _run_trials(self, generator, states, tracker_states, zs, u, sampler, flow_kw):
         """:meth:`run_trials` with a control input ``u`` shared by every
         trial and step."""
-        B, T = zs.shape[:2]
-        p, lw = states.particles, states.log_weights
-        n, nx = p.shape[1:]
-        ts = state_fields(tracker_states)
+        with span("pf.flow.run"):
+            B, T = zs.shape[:2]
+            p, lw = states.particles, states.log_weights
+            n, nx = p.shape[1:]
+            ts = state_fields(tracker_states)
 
-        sharded = self.group is not None
+            sharded = self.group is not None
 
-        def advance(p, lw, ts, z, v):
-            xk, logw, conds, ts = self._advance(p, lw, TrackerState(*ts), z, v, u,
-                                                normalize=not sharded, **flow_kw)
-            return xk, logw, conds, state_fields(ts)
+            def advance(p, lw, ts, z, v):
+                xk, logw, conds, ts = self._advance(p, lw, TrackerState(*ts), z, v, u,
+                                                    normalize=not sharded, **flow_kw)
+                return xk, logw, conds, state_fields(ts)
 
-        advance = torch.func.vmap(advance)
-        moments = torch.func.vmap(self._moments)
-        ess = torch.func.vmap(ess_from_logw)
-        if sharded:
-            moments, ess = self._sharded_moments, self._sharded_ess
-        noise_gen = None if sampler is None else comm.rank_stream(generator, self.group,
-                                                                   self.device)
-        rows = []
-        for k in range(T):
-            v = self._noise(noise_gen, sampler, B * n, nx).view(B, n, nx)
-            p, lw, conds, ts = advance(p, lw, ts, zs[:, k], v)
-            trig = torch.zeros(B, dtype=torch.bool, device=self.device)
-            ok = torch.ones(B, dtype=torch.bool, device=self.device)
+            advance = torch.func.vmap(advance)
+            moments = torch.func.vmap(self._moments)
+            ess = torch.func.vmap(ess_from_logw)
             if sharded:
-                lw, trig_g, conds = self._sharded_weights(lw, conds)
-            if self.cfg.resample_ess_ratio > 0.0:
-                trig = trig_g if sharded else torch.func.vmap(self._trigger)(lw)
-                sel = torch.nonzero(trig)[:, 0]  # the step's one host sync
-                if sel.numel() and sharded:
-                    vals, oks = self._sharded_resample(generator, p, lw, sel)
-                    p, ok = p.index_copy(0, sel, vals), ok.index_copy(0, sel, oks)
-                elif sel.numel():
-                    p = p.index_copy(0, sel, systematic_resample_values_batched(
-                        generator, p[sel], logw=lw[sel]))
-                if sel.numel():
-                    lw = lw.index_fill(0, sel, -math.log(n * self.ranks))
-            mean, cov = moments(p, lw)
-            st = FlowPFState(particles=p, weights=torch.exp(lw), log_weights=lw, mean=mean,
-                             cov=cov, diagnostics={"condition_numbers": conds,
-                                                   "resampled": trig})
-            rows.append({"mean": mean, "cov": cov, "ess": ess(lw), "resampled": trig,
-                         "condition_numbers": conds, "exchange_ok": ok})
-        hist = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
-        return st, TrackerState(*ts), hist
+                moments, ess = self._sharded_moments, self._sharded_ess
+            noise_gen = None if sampler is None else comm.rank_stream(generator, self.group,
+                                                                       self.device)
+            rows = []
+            for k in range(T):
+                v = self._noise(noise_gen, sampler, B * n, nx).view(B, n, nx)
+                with span("pf.flow.advance"):
+                    p, lw, conds, ts = advance(p, lw, ts, zs[:, k], v)
+                trig = torch.zeros(B, dtype=torch.bool, device=self.device)
+                ok = torch.ones(B, dtype=torch.bool, device=self.device)
+                if sharded:
+                    lw, trig_g, conds = self._sharded_weights(lw, conds)
+                if self.cfg.resample_ess_ratio > 0.0:
+                    with span("pf.flow.trigger_read"):
+                        trig = trig_g if sharded else torch.func.vmap(self._trigger)(lw)
+                        sel = torch.nonzero(trig)[:, 0]  # the step's one host sync
+                    if sel.numel():
+                        with span("pf.flow.resample"):
+                            if sharded:
+                                vals, oks = self._sharded_resample(generator, p, lw, sel)
+                                p, ok = p.index_copy(0, sel, vals), ok.index_copy(0, sel, oks)
+                            else:
+                                p = p.index_copy(0, sel, systematic_resample_values_batched(
+                                    generator, p[sel], logw=lw[sel]))
+                            lw = lw.index_fill(0, sel, -math.log(n * self.ranks))
+                mean, cov = moments(p, lw)
+                st = FlowPFState(particles=p, weights=torch.exp(lw), log_weights=lw,
+                                 mean=mean, cov=cov,
+                                 diagnostics={"condition_numbers": conds, "resampled": trig})
+                rows.append({"mean": mean, "cov": cov, "ess": ess(lw), "resampled": trig,
+                             "condition_numbers": conds, "exchange_ok": ok})
+            hist = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0]}
+            return st, TrackerState(*ts), hist
 
 
 class EDHFlowPF(_FlowPF):

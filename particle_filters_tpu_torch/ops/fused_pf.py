@@ -70,6 +70,7 @@ import torch
 from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core.structs import as_f32
 from particle_filters_tpu_torch.resampling.hard import systematic_resample_values
+from particle_filters_tpu_torch.utils.timing import span
 
 _MAX_NX = 10
 
@@ -505,21 +506,24 @@ class FusedSIRFilter:
         with a group) lands in ``row_out``; x' and lw' in ``x_out`` and
         ``lw_out`` when given (neither may be an input of the step)."""
         particles, logw, off_u = carry
-        x_new, logw, _ = _fused_step(
-            particles.view(self.nx, self.n), logw, off_u, z, self.Lq, self.params,
-            self.model, seed, None, self.resample_thresh, self._work, x_out, lw_out,
-            row_out, (self.rank, self.ranks),
-        )
+        with span("pf.sir.b1"):
+            x_new, logw, _ = _fused_step(
+                particles.view(self.nx, self.n), logw, off_u, z, self.Lq, self.params,
+                self.model, seed, None, self.resample_thresh, self._work, x_out, lw_out,
+                row_out, (self.rank, self.ranks),
+            )
         particles = x_new.view(self._shape())
         if self.ranks > 1:
             row_out.copy_(fold_ranks(self._work.last_partials(), self.nx, self.group))
             self._work.carry.copy_(torch.stack([row_out[0], torch.zeros_like(row_out[0])]))
             self._work.trigger.copy_(row_out[1] < self.resample_thresh * self.Np)
         # The one host read of the step (4 bytes): the resample branch runs on the host.
-        trigger = bool(self._work.trigger.item())
+        with span("pf.sir.trigger_read"):
+            trigger = bool(self._work.trigger.item())
         ok = True
         if trigger:
-            particles, ok = self._resample(generator, particles, logw, row_out[0])
+            with span("pf.sir.resample"):
+                particles, ok = self._resample(generator, particles, logw, row_out[0])
             off_u = self._off_resampled
         else:
             off_u = self._work.carry
@@ -558,18 +562,19 @@ class FusedSIRFilter:
         The outputs are allocated once: two particle and two log-weight
         buffers that the steps alternate, and the (T, 2 + nx + nx²) rows the
         kernel writes. ``state`` is read, never written."""
-        zs = self._obs(zs)
-        T = zs.shape[0]
-        self._check(state, zs[0])
-        seeds = self._draw_seeds(generator, T)
-        xs = torch.empty((2, self.nx, self.n), device=self.device)
-        lws = torch.empty((2, self.n), device=self.device)
-        rows = torch.empty((T, row_width(self.nx)), device=self.device)
-        triggers, oks = [], []
-        for t, seed in enumerate(seeds):
-            state, trig, ok = self._step_core(seed, generator, state, zs[t], rows[t],
-                                              xs[t % 2], lws[t % 2])
-            triggers.append(trig)
-            oks.append(ok)
-        particles, logw, off_u = state
-        return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers, oks)
+        with span("pf.sir.run"):
+            zs = self._obs(zs)
+            T = zs.shape[0]
+            self._check(state, zs[0])
+            seeds = self._draw_seeds(generator, T)
+            xs = torch.empty((2, self.nx, self.n), device=self.device)
+            lws = torch.empty((2, self.n), device=self.device)
+            rows = torch.empty((T, row_width(self.nx)), device=self.device)
+            triggers, oks = [], []
+            for t, seed in enumerate(seeds):
+                state, trig, ok = self._step_core(seed, generator, state, zs[t], rows[t],
+                                                  xs[t % 2], lws[t % 2])
+                triggers.append(trig)
+                oks.append(ok)
+            particles, logw, off_u = state
+            return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers, oks)

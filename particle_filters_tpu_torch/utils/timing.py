@@ -126,10 +126,25 @@ def kernel_records(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program (``pf.sir.b1``, ...) in a profiler's
+    trace: ``torch.profiler.record_function(name)`` while a torch profiler
+    records, else one shared null context. The switch is the flag the
+    profiler sets itself, so a span costs a global read when nothing
+    records, where a bare ``record_function`` builds its range every time."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def profiler_trace(logdir: str):
     """``torch.profiler`` trace of the host and, where there is one, the
-    card; written to ``logdir`` as a Chrome trace (chrome://tracing)."""
+    card; written to ``logdir`` as a Chrome trace (chrome://tracing), where
+    the program's :func:`span` ranges sit over the kernels they launched."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
