@@ -14,7 +14,12 @@ also against B2; X1 and X2 both on their sorted windows, where they search,
 and on shuffled ones, where they walk; X1 kernel and plain each held against
 the f64 sums of its windows, also at W = 128 and 6144 and on a NaN start, X2
 also launched past its span budget, where exactly the over-budget
-super-groups get NaN). Then:
+super-groups get NaN); kernel S (the systematic starts from the weights)
+against the plain chain at rows x N = 1 x 2^24, 1 x 2^20, 1 x 3000,
+100 x 200 and 100 x 10^4 on five weight regimes (run ends within one of
+plain at no more than 1e-5 of the positions, the count printed, and a wrong
+u shown to move more; the starts sorted and bounded; two calls bit-equal).
+Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
@@ -127,7 +132,8 @@ super-groups get NaN). Then:
   injected normals and over its programs per SM, B2 also at a point mass
   and at the flows' shapes (d = 64, 144 and 16) and the SIR PF's (1e4, 9),
   X1 and X2 on sorted windows beside the same windows shuffled, X3 against ``torch.add`` in
-  alternating pairs; the exact run ends at 2^25 beside the f32 ones at 2^24.
+  alternating pairs; the exact run ends at 2^25 beside the f32 ones at 2^24;
+  S against the plain chain at 1 x 2^24, 1 x 2^20 and 100 x 200.
 
 Every phase raises on failure, so the exit code is non-zero. Without a CUDA
 device it exits non-zero at once. The last three lines of standard output are
@@ -184,6 +190,7 @@ from particle_filters_tpu_torch.models.kernel_particle_filter import FACTOR_RESI
 from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
 from particle_filters_tpu_torch.ops import span_resample as x2
+from particle_filters_tpu_torch.ops import systematic_starts as ks
 from particle_filters_tpu_torch.ops import window_resample as x1
 from particle_filters_tpu_torch.ops.fused_pf import (
     FusedSIRFilter,
@@ -223,6 +230,16 @@ B2_TRIAL_SHAPES = ((100, 200, 64), (100, 10000, 64), (100, 200, 144), (100, 1000
 # rank test; a p under this flags a shift of the port's flow, not chance.
 MAT_RANK_P = 1e-3
 DET_SEED = 11  # the determinism check's generator seed
+# Kernel S against the plain chain: rows x N (the SV cells, a ragged tile,
+# the flows' 200 and 10^4 a cloud), and the shapes it is timed at.
+S_SHAPES = ((1, 1 << 24), (1, 1 << 20), (1, 3000), (100, 200), (100, 10_000))
+S_TIMED = ((1, 1 << 24), (1, 1 << 20), (100, 200))
+# The run ends kernel S may give off the chain's, each by one, as a share of
+# rows x N: none below 10^5 positions, at most 167 at 2^24. A cdf sum
+# associated in another order rounds to another f32 only where the f64 sum
+# lies within a few of its ulps of an f32 rounding boundary; a u read from
+# another row, or none, moves about a third of the run ends.
+S_DIFF_SHARE = 1e-5
 B2_SIR_SHAPE = (1, spf.N_SIR, 9)  # SPF example 2's SIR PF: one cloud of 10^4 x 9
 SPF_BETA_TOL = 1e-4  # beta* on the card against the CPU port
 # SPF example 2 runs its first SPF_EX2_STEPS time steps here (the module runs
@@ -347,6 +364,81 @@ def check_b2_trials(gen, trials, n, d, device) -> float:
     print(f"B2 trial-offset starts {trials} x {n} = {trials * n} rows, d={d}: equal to plain, "
           f"point-mass trial intact")
     return (out - ref).abs().max().item()
+
+
+# --- S ------------------------------------------------------------------------
+_S_LOGNORMAL = "lognormal sigma=2"
+
+
+def _s_cases(gen, rows, n, device):
+    """(label, weights) a row: lognormal sigma = 2, one weight 1 and the
+    rest 0, all equal, tiny weights (every 1024th 1, the rest 1e-39, in f32
+    subnormals after the normalization) and unnormalized weights all under
+    1e-38."""
+    yield _S_LOGNORMAL, torch.softmax(
+        2.0 * torch.randn((rows, n), generator=gen, device=device), dim=1)
+    one = torch.zeros((rows, n), device=device)
+    one[torch.arange(rows, device=device), torch.arange(rows, device=device) * 7919 % n] = 1.0
+    yield "one weight 1", one
+    yield "all equal", torch.full((rows, n), 1.0 / n, device=device)
+    tiny = torch.full((rows, n), 1e-39, device=device)
+    tiny[:, ::1024] = 1.0
+    yield "tiny weights", tiny / tiny.sum(1, keepdim=True)
+    yield "all under 1e-38", torch.full((rows, n), 1e-40, device=device)
+
+
+def _wrong_u(u):
+    """Uniforms a faulty kernel might read: another row's, or none."""
+    return {"another row's u": u.roll(1) if u.numel() > 1 else (u + 0.5) % 1.0,
+            "u = 0": torch.zeros_like(u)}
+
+
+def check_starts(gen, rows, n, device) -> int:
+    """Kernel S against the plain chain on the card, both forms: run ends
+    within one of the chain's at no more than ``S_DIFF_SHARE`` of the
+    positions (counted and printed), the starts the shifted run ends (first
+    0, offset by b·N, sorted, in [b·N, (b+1)·N]), two calls bit-equal, the
+    launches counted. On the lognormal weights the check shows its power:
+    the chain's run ends for a wrong u differ from the right ones at more
+    than the allowed positions. Returns the largest difference of a run end
+    (0 or 1)."""
+    most = 0
+    passes = ks.plan(rows, n).passes
+    allowed = int(S_DIFF_SHARE * rows * n)
+    for label, w in _s_cases(gen, rows, n, device):
+        u = torch.rand(rows, generator=gen, device=device)
+        before = ks.systematic_starts.launches
+        t = ks.systematic_run_ends(w, n, u)
+        t2 = ks.systematic_run_ends(w, n, u)
+        s = ks.systematic_starts(w, u)
+        s2 = ks.systematic_starts(w, u)
+        torch.cuda.synchronize()
+        _check(ks.systematic_starts.launches == before + 4 * passes,
+               f"S launched {ks.systematic_starts.launches - before}, want {4 * passes}")
+        _check(torch.equal(t, t2) and torch.equal(s, s2), f"S two calls bit-equal ({label})")
+        ref = ks.run_ends_reference(w, n, u)
+        diff = (t.long() - ref.long()).abs()
+        _check(int(diff.max()) <= 1, f"S run ends within one of plain ({label}, {rows} x {n})")
+        count = int((diff != 0).sum())
+        _check(count <= allowed, f"S run ends off plain at {count} of {rows * n} positions, "
+                                 f"at most {allowed} allowed ({label})")
+        _check(torch.equal(s, ks.starts_from_run_ends(t)), f"S starts = shifted run ends ({label})")
+        sv = s.view(rows, n).long()
+        off = torch.arange(rows, device=device)[:, None] * n
+        _check(bool((sv[:, :1] == off).all()), f"S first start b·N ({label})")
+        _check(bool((s[1:] >= s[:-1]).all()), f"S starts sorted ({label})")
+        _check(bool(((sv >= off) & (sv <= off + n)).all()), f"S starts in range ({label})")
+        most = max(most, int(diff.max()))
+        caught = ""
+        if label == _S_LOGNORMAL:
+            moved = {k: int((ks.run_ends_reference(w, n, v) != ref).sum())
+                     for k, v in _wrong_u(u).items()}
+            _check(min(moved.values()) > allowed, f"S check too weak: a wrong u moves {moved}")
+            caught = ", a wrong u would move " + ", ".join(f"{v} ({k})" for k, v in moved.items())
+        print(f"S {label:18s} {rows} x {n}: {count} run ends differ by one from plain "
+              f"(of {rows * n}, at most {allowed} allowed{caught}), two calls bit-equal, "
+              f"starts sorted and bounded, {passes} passes")
+    return most
 
 
 # --- B1 -----------------------------------------------------------------------
@@ -610,8 +702,10 @@ def run_main_path(n, device):
     state0 = f.initialize(gen, [0.0], [[var0]])
     fused_step.launches = 0
     b2.resample_by_starts.launches = 0
+    ks.systematic_starts.launches = 0
     _, hist = f.run(gen, state0, zs)
-    counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches}
+    counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches,
+              "S": ks.systematic_starts.launches}
     rmse, frac = _check_history(hist, sv, "fused")
     n_res = int(hist["resampled"].sum())
     print(f"fused SV run N={n} T={T}: sv_rmse {rmse:.4f}, resample_frac {frac:.3f}, "
@@ -619,6 +713,8 @@ def run_main_path(n, device):
     if device.type == "cuda":
         _check(counts["B1"] == T, f"B1 launched {counts['B1']} times, want {T}")
         _check(counts["B2"] == n_res > 0, f"B2 launched {counts['B2']} times, want {n_res} > 0")
+        want = ks.plan(1, n).passes * n_res
+        _check(counts["S"] == want, f"S launched {counts['S']} times, want {want}")
 
     pf = ParticleFilter(
         lambda x, u: model.g(x), None, Q=[[SIGMA**2]], R=None, Np=n,
@@ -708,9 +804,11 @@ def check_step_launches(n, device):
         with torch.profiler.profile(activities=acts) as prof:
             f.run(gen, state0, sv.Y[:t_len, None])
             torch.cuda.synchronize()
+        # The program's spans (``pf.*``) show on the device timeline as
+        # annotations, not kernels.
         kernels = [(e.key, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith(("Memcpy", "Memset"))]
+                   and not e.key.startswith(("Memcpy", "Memset", "pf."))]
         if not kernels:
             print("step launches: not measured (profiler saw no device time)")
             return
@@ -1122,6 +1220,28 @@ def time_b2_trials(gen, device, card):
         print(f"B2 at the flows' shape {trials} x {n} = {rows} rows, d={d}: device "
               f"{ms:.6f} ms, plain {plain_ms:.6f} ms, repeat_interleave {lib_ms:.6f} ms; bound "
               f"{bound[0]:.6f} ms ({bound[1]}) -> {bound[0] / ms:.3f} of it  [{card}]")
+    return out
+
+
+def time_starts(gen, device, card):
+    """Kernel S (starts form) against the plain chain and its byte bound (a
+    weight read and a start written a row) at ``S_TIMED``, by CUDA-graph
+    replay in turns (kernel, plain, plain, kernel) over rotating inputs.
+    Returns ``{(rows, n): (ms, plain_ms, bound)}``."""
+    out = {}
+    for rows, n in S_TIMED:
+        sets = [(torch.softmax(2.0 * torch.randn((rows, n), generator=gen, device=device), 1),
+                 torch.rand(rows, generator=gen, device=device))
+                for _ in range(2 if n >= 1 << 24 else 4)]
+        kern, plain = _rotating(ks.systematic_starts, sets), _rotating(ks.starts_reference, sets)
+        t = [_graph_ms(f) for f in (kern, plain, plain, kern)]
+        ms, plain_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        w, u = sets[0]
+        bound = _bound(_nbytes(w, u, w), 0)  # weights and u in, int32 starts out
+        out[(rows, n)] = (ms, plain_ms, bound)
+        print(f"S at {rows} x {n}: device {ms:.6f} ms, plain chain {plain_ms:.6f} ms "
+              f"({plain_ms / ms:.1f}x); bound {bound[0]:.6f} ms ({bound[1]}) -> "
+              f"{bound[0] / ms:.3f} of it  [{card}]")
     return out
 
 
@@ -1662,9 +1782,9 @@ def _build_all(gen) -> None:
     compiles (two models, drawn and injected normals)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        for fut in [pool.submit(m._library) for m in (b2, x1, x2, x3)]:
+        for fut in [pool.submit(m._library) for m in (b2, ks, x1, x2, x3)]:
             fut.result()
-    print(f"nvcc build+load of B2, X1, X2, X3 {time.perf_counter() - t0:.2f} s")
+    print(f"nvcc build+load of B2, S, X1, X2, X3 {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     device = torch.device("cuda")
     for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
@@ -1696,7 +1816,8 @@ def main() -> None:
                       + [check_b2(gen, B2_SIR_SHAPE[1], device, dims=B2_SIR_SHAPE[2:])]
                       + [check_b2_trials(gen, t, n, d, device) for t, n, d in B2_TRIAL_SHAPES]),
             "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
-            "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device)}
+            "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device),
+            "S": max(check_starts(gen, rows, n, device) for rows, n in S_SHAPES)}
     check_exact(gen, device)
     torch.cuda.synchronize()
 
@@ -1729,8 +1850,10 @@ def main() -> None:
     time_b2_trials(gen, device, card)
     time_probe_branches(gen, N, device, card)
     time_run_ends(gen, device, card)
+    s_times = time_starts(gen, device, card)
     x3_ms, add_ms = time_x3_pairs(gen, card)
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
+    times["S"] = s_times[(1, N)][:2] + (None, s_times[(1, N)][2])
     fused_ms = time_fused_run(N, card, fused_run)
     print(f"fused SV run N={N} T={T}: bench twin {bench_ms:.4f} ms/step (best of "
           f"{bench.RUNS}, host clock to a sync) against {fused_ms:.4f} (median of 5, CUDA "
@@ -1752,6 +1875,9 @@ def main() -> None:
         ("X3", "X3 launch floor (probe)", "cuda",
          "particle_filters_tpu_torch/csrc/launch_probe.cu",
          "benchmarks/profile_small_n.py:137"),
+        ("S", "S systematic starts from the weights", "cuda",
+         "particle_filters_tpu_torch/csrc/systematic_starts.cu",
+         "no TPU kernel: replaces the torch starts chain"),
     )
     kernels = []
     for key, name, route, source, replaces in rows:

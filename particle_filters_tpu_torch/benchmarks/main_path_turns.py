@@ -11,7 +11,8 @@ pairs, other-this then this-other, ``PAIRS`` (default 5) times. A run times
 (wall ms a step, the median of 5 runs after a warm-up, and the device busy
 ms of one profiled run) and the general ``ParticleFilter`` on the same
 data (median of 3); then the resample's run ends alone at N = 2²⁰
-(``_child_run_ends_u``, the cdf scan and the ceil), median of 50 calls,
+(``_child_run_ends_u``: kernel S in a tree that has it, else the torch
+chain of the cdf scan and the ceil), median of 50 calls,
 to a sync and to the call's return (the host's time to issue it). It
 prints one JSON line a run and the medians by tree.
 """

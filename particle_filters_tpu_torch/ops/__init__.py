@@ -5,6 +5,9 @@
 - B2, ``resample.resample_by_starts``: systematic-resampled values (CUDA C++),
   driven by ``resampling.hard.systematic_resample_values`` and, for many
   clouds in one launch, ``systematic_resample_values_batched``.
+- S, ``systematic_starts.systematic_starts`` and ``systematic_run_ends``: the
+  systematic child-run starts and run ends from the weights (CUDA C++), driven
+  by ``resampling.hard.batched_starts`` and ``_child_run_ends_u``.
 - The profiling probes (CUDA C++), driven by ``benchmarks``: X1,
   ``window_resample.window_compare_sum``; X2,
   ``span_resample.span_compare_sum``, on the prep of ``resample_blocked``;
@@ -13,5 +16,5 @@
 Each wrapper launches its kernel on a CUDA tensor, takes its plain version
 on a CPU tensor, and counts launches in ``<wrapper>.launches``. This package
 file imports nothing, so ``resampling.hard`` can import ``ops.resample``
-while ``ops.fused_pf`` imports ``resampling.hard``.
+and ``ops.systematic_starts`` while ``ops.fused_pf`` imports ``resampling.hard``.
 """

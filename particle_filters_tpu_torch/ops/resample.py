@@ -20,8 +20,9 @@ starts and the particles and write the output, 12 MiB in all; the design
 spends three rounds of loads on each block's split, where a binary search
 per output spent twenty dependent ones.
 
-The starts come from torch ops (``resampling.hard._systematic_starts``),
-as they came from XLA in the JAX package.
+The starts come from kernel S (``ops/systematic_starts.py``, through
+``resampling.hard.batched_starts``), where the JAX package took them from
+XLA.
 
 The M→n form serves the sharded filters: M sorted starts (and M value
 rows) and n outputs, from output ``offset`` on, ``out[i] = values[max{j :

@@ -21,13 +21,15 @@ one-device resample's).
   not, all take the exact all-gather path for the same u, which reports
   ``ok = False``: a pool-sizing signal, never a wrong result.
 
-The run ends: below N = 2²⁴ in f32. Each rank takes its cdf from its own
-weights (``resampling.hard._cdf``), the ranks' offsets are their cdfs'
-last entries added in rank order, so rank r's last global cdf value is bit
-for bit rank r+1's offset and the pooled starts are sorted; the cdf is
-normalized by the sum of the shard totals, where the one-device path
-divides by its last entry, so an f32 run end may differ by one from the
-all-gather mode's at a rare ceil boundary. Past 2²⁴ (or ``exact=True``)
+The run ends: below N = 2²⁴ in f32. In all-gather mode they are the
+one-device path's (kernel S on the card). In neighbour mode each rank
+takes its cdf from its own weights (``resampling.hard._cdf``, the torch
+chain on the card too), the ranks' offsets are their cdfs' last entries
+added in rank order, so rank r's last global cdf value is bit for bit rank
+r+1's offset and the pooled starts are sorted; the cdf is normalized by the
+sum of the shard totals, where the one-device path divides by its last
+entry, so an f32 run end may differ by one from the all-gather mode's at a
+rare ceil boundary. Past 2²⁴ (or ``exact=True``)
 the exact integer convention of ``resampling/exact.py``, quantized on the
 global grid: the starts are bit-identical to ``exact_child_run_ends_u`` on
 the gathered weights for the same u, at any layout.

@@ -2,13 +2,18 @@
 residual (PyTorch port of ``particle_filters_tpu/resampling/hard.py``).
 
 One inverse-CDF convention, :func:`_child_run_ends`, defines systematic
-ancestry for the index, count and value paths alike. The cdf is the blocked
-cumsum of ``core/block_cumsum.py`` kept nondecreasing (:func:`_cdf`): it
-gives the card the same bits on every run, where ``torch.cumsum`` of a CUDA
-float tensor does not. Its sums are not the JAX package's
-(``blocked_cumsum`` there adds in another order, in f32), so run ends can
-differ by ±1 at rare ceil boundaries; on a shared cdf and u they are
-integer-equal.
+ancestry for the index, count and value paths alike: the run ends and
+starts of ``ops/systematic_starts.py``, from a cdf summed in f64, rounded
+once to f32 and kept nondecreasing. A CPU tensor takes the blocked cumsum
+of ``core/block_cumsum.py`` with a running maximum (``_cdf``); a CUDA
+tensor kernel S, which sums in another fixed order. Both give the same
+bits on every run, where ``torch.cumsum`` of a CUDA float tensor does not.
+Their sums are not the JAX package's (``blocked_cumsum`` there adds in
+another order, in f32), nor each other's, so run ends can differ by ±1 at
+rare ceil boundaries; on a shared cdf and u they are integer-equal. Below
+2²⁴ the card's systematic paths take float32 weights, as every filter of
+the port holds them; weights of another dtype on the card raise
+``TypeError`` (a CPU tensor of any float dtype takes the plain chain).
 
 Past max(N, M) = 2²⁴ the run ends come from the exact quantized-integer
 convention of ``resampling/exact.py``, bit-identical to the JAX package's.
@@ -28,6 +33,12 @@ import torch
 from particle_filters_tpu_torch.core.block_cumsum import blocked_cumsum
 from particle_filters_tpu_torch.core.weights import log_normalize
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
+from particle_filters_tpu_torch.ops.systematic_starts import (
+    cdf as _cdf,
+    starts_from_run_ends,
+    systematic_run_ends,
+    systematic_starts,
+)
 from particle_filters_tpu_torch.resampling.exact import (
     EXACT_THRESHOLD,
     exact_child_run_ends_u,
@@ -50,36 +61,6 @@ def _uniform(generator, shape, like: torch.Tensor) -> torch.Tensor:
     return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
-_ROW = 256  # row width of the running maximum
-
-
-def _running_max(x: torch.Tensor) -> torch.Tensor:
-    """``torch.cummax(x, -1).values`` over the last axis, in rows of 256:
-    the card scans one long row serially, many short rows in parallel; the
-    rows' running maxima carry between them."""
-    n = x.shape[-1]
-    if n <= _ROW:
-        return torch.cummax(x, dim=-1).values
-    rows = -(-n // _ROW)
-    pad = x[..., -1:].expand(x.shape[:-1] + (rows * _ROW - n,))
-    padded = torch.cat([x, pad], dim=-1).view(x.shape[:-1] + (rows, _ROW))
-    within = torch.cummax(padded, dim=-1).values
-    carry = _running_max(within[..., -1])  # the maximum up to each row's end
-    out = torch.cat(
-        [within[..., :1, :], torch.maximum(within[..., 1:, :], carry[..., :-1, None])],
-        dim=-2,
-    )
-    return out.flatten(-2)[..., :n]
-
-
-def _cdf(weights: torch.Tensor) -> torch.Tensor:
-    """The nondecreasing cumulative sum of ``weights`` along the last axis.
-    Each partial sum of the blocked scan rounds on its own, so one can land
-    below its predecessor where a weight is under one ulp of it; the running
-    maximum undoes that. Both are deterministic on the card."""
-    return _running_max(blocked_cumsum(weights))
-
-
 def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """idx[i] = smallest j with positions[i] < cdf[j]."""
     n = cdf.shape[0]
@@ -92,19 +73,22 @@ def _child_run_ends_u(
     weights: torch.Tensor, m: int, u: torch.Tensor, *, exact: Optional[bool] = None
 ) -> torch.Tensor:
     """t_j = #{i : (u + i)/M < cdf_j} = ⌈M·cdf_j − u⌉ for a given u, along
-    the last axis of ``weights`` (one u per row). Past max(N, M) = 2²⁴ the
-    exact integer path computes them; ``exact=True/False`` forces either
-    path (testing)."""
+    the last axis of ``weights`` (one u per row): kernel S on a CUDA
+    tensor, its plain version on a CPU one. Past max(N, M) = 2²⁴ the exact
+    integer path computes them; ``exact=True/False`` forces either path
+    (testing)."""
     n = weights.shape[-1]
     if exact is None:
         exact = max(n, m) > EXACT_THRESHOLD
     if exact:
         return exact_child_run_ends_u(weights, m, u)
-    cdf = _cdf(weights)
-    cdf = cdf / cdf[..., -1:]
-    u = torch.as_tensor(u, dtype=cdf.dtype, device=cdf.device)
-    t = torch.ceil(m * cdf - u[..., None])
-    return t.clamp_(0.0, m).to(torch.int32)
+    if weights.device.type == "cpu":
+        return systematic_run_ends(weights, m, u)
+    u = torch.as_tensor(u, dtype=weights.dtype)
+    if u.device != weights.device:
+        u = u.to(weights.device)
+    u = u.expand(weights.shape[:-1]).reshape(-1).contiguous()
+    return systematic_run_ends(weights.reshape(-1, n).contiguous(), m, u).view(weights.shape)
 
 
 def _child_run_ends(
@@ -163,9 +147,9 @@ def systematic_resample_values(
     """Systematic resampling returning the resampled (N, d) particle VALUES:
     the one-cloud case of :func:`systematic_resample_values_batched`.
 
-    The starts are torch ops; the values come from kernel B2
-    (``ops/resample.py``) on a CUDA tensor and from its plain version on a
-    CPU tensor. The values are copies, so they equal ``particles[idx]``.
+    The starts come from kernel S (``ops/systematic_starts.py``) and the
+    values from kernel B2 (``ops/resample.py``) on a CUDA tensor, from their
+    plain versions on a CPU tensor. The values are copies, so they equal ``particles[idx]``.
     With ``return_starts`` also returns the (N,) int32 child-run starts the
     values were copied by.
     """
@@ -200,11 +184,11 @@ def batched_starts(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The child-run starts of B clouds (B, N) for the u's (B,), as one
     sorted int32 array (B·N,): cloud b's starts offset by b·N. Every cloud's
     first start is 0, so ``idx[i] = max{j : start_j ≤ i}`` never crosses a
-    cloud."""
-    b, n = weights.shape
-    t = _child_run_ends_u(weights, n, u)
-    offsets = torch.arange(b, dtype=torch.int32, device=weights.device)[:, None] * n
-    return (torch.cat([t.new_zeros((b, 1)), t[:, :-1]], dim=1) + offsets).view(-1)
+    cloud. Below N = 2²⁴ one call of kernel S on a CUDA tensor."""
+    n = weights.shape[-1]
+    if n > EXACT_THRESHOLD:
+        return starts_from_run_ends(exact_child_run_ends_u(weights, n, u))
+    return systematic_starts(weights.contiguous(), u.contiguous())
 
 
 def stratified_resample(

@@ -15,8 +15,11 @@ a ragged last block, and the probes, which take whole super-groups, run at
 3·2^14 beside a power of two. The fused filter run twice from one seed
 gives the same history bit for bit. B2 at the flows' d = 64 with
 trial-offset starts (a point-mass trial among them) is bit-equal to plain,
-and the exact run ends at N = 2^25 on the card equal the CPU's. Run on a
-GPU host with
+and the exact run ends at N = 2^25 on the card equal the CPU's. Kernel S
+(the systematic starts) against the plain chain at the SV cells' 2^24 and
+2^20, a ragged 3000 and the flows' 100 x 200 and 100 x 10^4, on five
+weight regimes, differing at no more than 1e-5 of the run ends
+(``chip_smoke.check_starts``). Run on a GPU host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -48,6 +51,20 @@ def test_b2_kernel_equals_plain(cuda_device, n):
     assert chip_smoke.check_b2(gen, n, cuda_device) == 0.0
     torch.cuda.synchronize()
     assert resample_by_starts.launches == before + 14  # 7 regimes x d in {1, 3}
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1 << 24), (1, 1 << 20), (1, 3000), (100, 200),
+                                    (100, 10_000)])
+def test_starts_kernel_matches_plain(cuda_device, rows, n):
+    """Kernel S: run ends within one of the plain chain's at no more than
+    1e-5 of the positions (none below 10^5), a wrong u shown to move more,
+    the starts their shift (sorted, first b·N, bounded), two calls
+    bit-equal, one launch a pass counted (``chip_smoke.check_starts`` raises
+    on any miss)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    assert chip_smoke.check_starts(gen, rows, n, cuda_device) <= 1
 
 
 @pytest.mark.parametrize("n", SIZES)

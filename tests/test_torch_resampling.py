@@ -14,6 +14,7 @@ from particle_filters_tpu_torch.ops.resample import (
     resample_by_starts,
     resample_by_starts_reference,
 )
+from particle_filters_tpu_torch.ops.systematic_starts import running_max
 from particle_filters_tpu_torch.resampling import hard as thard
 
 torch.set_num_threads(1)
@@ -62,9 +63,9 @@ def test_running_max_equals_cummax(n):
     """The two-level running maximum that keeps the cdf nondecreasing (the
     card's parallel cumsum can round a partial sum down) is torch.cummax."""
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
-    assert torch.equal(thard._running_max(x), torch.cummax(x, 0).values)
+    assert torch.equal(running_max(x), torch.cummax(x, 0).values)
     t = x.to(torch.int32)
-    assert torch.equal(thard._running_max(t), torch.cummax(t, 0).values)
+    assert torch.equal(running_max(t), torch.cummax(t, 0).values)
 
 
 def test_inexact_sizes_raise():
