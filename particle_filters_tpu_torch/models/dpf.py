@@ -5,7 +5,8 @@
   mixture + Gumbel-Softmax soft resampling and the diagnostics (ESS, weight
   entropy, particle diversity, assignment entropy, RMSE sequence).
 - :class:`DPF_OT`: Sinkhorn-OT resampling, unbatched (N, d), linear-domain
-  weights, convergence / sparsity / dual diagnostics.
+  weights, convergence / sparsity / dual diagnostics, the log-evidence on
+  request and program spans.
 - :class:`DifferentiableParticleFilterRNN`: the learned GRU/LSTM resampler
   (``resampling.rnn.RNNResampler``, an ``nn.Module``) and its training-free
   baseline mode.
@@ -35,6 +36,7 @@ from particle_filters_tpu_torch.resampling.soft import (
     gumbel_softmax,
     log_normalize_lastaxis,
 )
+from particle_filters_tpu_torch.utils.timing import span
 
 
 # --------------------------- shared diagnostics ----------------------------
@@ -215,6 +217,13 @@ class DPF_OT:
 
     ``transition_fn(generator, particles, t) -> particles`` (N, d);
     ``obs_loglik_fn(particles, y, t) -> (N,)``.
+
+    ``run_filter(..., return_log_evidence=True)`` also returns the
+    log-evidence Σₜ log Σᵢ wₜ₋₁,ᵢ exp ℓₜ,ᵢ (0-d), what a user fits the
+    model's parameters by. Program spans (``utils/timing.py::span``):
+    ``pf.ot.run`` around ``run_filter``, ``pf.ot.step`` around each step,
+    and inside a step the resampler's ``pf.ot.sinkhorn`` (the dual loop) and
+    ``pf.ot.project`` (the plan and the barycentric projection).
     """
 
     def __init__(self, n_particles: int, state_dim: int, transition_fn: Callable,
@@ -247,47 +256,63 @@ class DPF_OT:
     def step(self, generator, particles, weights, y, t=0, return_diagnostics: bool = False):
         """Propagate → linear-domain weight update (with a max-shift guard
         outside the gradient) → Sinkhorn-OT resample."""
-        pred = self.transition_fn(generator, particles, t)
-        loglik = self.obs_loglik_fn(pred, y, t)
-        loglik = loglik - torch.amax(loglik).detach()
-        w = torch.clamp(weights * torch.exp(loglik), min=self.min_val)
-        w = w / torch.sum(w)
-        out = sinkhorn_ot_resample(
-            pred, w, epsilon=self.epsilon, n_iters=self.n_sinkhorn_iters,
-            min_val=self.min_val, damping=self.damping, return_diagnostics=return_diagnostics,
-        )
-        if not return_diagnostics:
-            return out
-        new_p, new_w, diag = out
-        return new_p, new_w, {
-            "ot_distance": diag["ot_distance"],
-            "transport_plan_sparsity": diag["transport_plan_sparsity"],
-            "final_delta": diag["final_delta"],
-            # aggregates to converged_mean, the rate of converged steps
-            "converged": diag["converged"].to(torch.float32),
-            "f_std": diag["dual_variables"]["f_std"],
-            "g_std": diag["dual_variables"]["g_std"],
-            "ess_before": 1.0 / torch.sum(w * w),
-        }
+        return self._step(generator, particles, weights, y, t, return_diagnostics)[0]
+
+    def _step(self, generator, particles, weights, y, t, return_diagnostics):
+        """:meth:`step`'s outputs and the step's log-evidence increment
+        log Σᵢ wᵢ exp ℓᵢ, max-shifted, from the weights before the resample."""
+        with span("pf.ot.step"):
+            pred = self.transition_fn(generator, particles, t)
+            loglik = self.obs_loglik_fn(pred, y, t)
+            top = torch.amax(loglik).detach()
+            lin = weights * torch.exp(loglik - top)
+            increment = top + torch.log(torch.sum(lin))
+            w = torch.clamp(lin, min=self.min_val)
+            w = w / torch.sum(w)
+            out = sinkhorn_ot_resample(
+                pred, w, epsilon=self.epsilon, n_iters=self.n_sinkhorn_iters,
+                min_val=self.min_val, damping=self.damping,
+                return_diagnostics=return_diagnostics,
+            )
+            if not return_diagnostics:
+                return out, increment
+            new_p, new_w, diag = out
+            return (new_p, new_w, {
+                "ot_distance": diag["ot_distance"],
+                "transport_plan_sparsity": diag["transport_plan_sparsity"],
+                "final_delta": diag["final_delta"],
+                # aggregates to converged_mean, the rate of converged steps
+                "converged": diag["converged"].to(torch.float32),
+                "f_std": diag["dual_variables"]["f_std"],
+                "g_std": diag["dual_variables"]["g_std"],
+                "ess_before": 1.0 / torch.sum(w * w),
+            }), increment
 
     def run_filter(self, generator, y_seq, mean0, cov0_chol,
-                   return_diagnostics: bool = False, init_eps=None):
+                   return_diagnostics: bool = False, init_eps=None,
+                   return_log_evidence: bool = False):
         """Filter a (T, obs_dim) sequence. Returns (particles_seq
-        (T+1, N, d), weights_seq (T+1, N)[, diagnostics])."""
-        y_seq = as_f32(y_seq, self.device)
-        p, w = self.init_particles(generator, mean0, cov0_chol, init_eps)
-        ps, ws, diags = [p], [w], []
-        for t in range(y_seq.shape[0]):
-            out = self.step(generator, p, w, y_seq[t], t, return_diagnostics)
-            p, w = out[0], out[1]
-            ps.append(p)
-            ws.append(w)
+        (T+1, N, d), weights_seq (T+1, N)[, diagnostics][, log_evidence]),
+        the log-evidence 0-d: the sum of the steps' increments, each
+        log Σᵢ wᵢ exp ℓᵢ from the weights before the step's resample. The
+        whole call is the span ``pf.ot.run``; each step ``pf.ot.step``."""
+        with span("pf.ot.run"):
+            y_seq = as_f32(y_seq, self.device)
+            p, w = self.init_particles(generator, mean0, cov0_chol, init_eps)
+            ps, ws, diags = [p], [w], []
+            log_z = torch.zeros((), device=self.device)
+            for t in range(y_seq.shape[0]):
+                out, increment = self._step(generator, p, w, y_seq[t], t, return_diagnostics)
+                p, w = out[0], out[1]
+                ps.append(p)
+                ws.append(w)
+                log_z = log_z + increment
+                if return_diagnostics:
+                    diags.append(out[2])
+            outs = (torch.stack(ps), torch.stack(ws))
             if return_diagnostics:
-                diags.append(out[2])
-        particles_seq, weights_seq = torch.stack(ps), torch.stack(ws)
-        if not return_diagnostics:
-            return particles_seq, weights_seq
-        return particles_seq, weights_seq, aggregate_diagnostics(_stack_diags(diags))
+                outs += (aggregate_diagnostics(_stack_diags(diags)),)
+            return outs + (log_z,) if return_log_evidence else outs
 
 
 # ------------------------------- RNN variant -------------------------------

@@ -8,6 +8,10 @@ OT-distance / sparsity / dual diagnostics. Each half-update is one
 logsumexp over the whole cost matrix; the ``n_iters`` iterations are
 unrolled (a Python loop), so autograd differentiates through them.
 
+Program spans (``utils/timing.py::span``, built only while a profiler
+records): ``pf.ot.sinkhorn`` around the dual loop, ``pf.ot.project`` around
+the plan and the barycentric projection.
+
 The cost comes from an x·yᵀ product, and (f⊕g−C)/ε at ε = 0.01 multiplies
 any error in C by 100: on the card it must be formed with TF32 off, which
 the caller sets (``torch.backends.cuda.matmul.allow_tf32 = False``).
@@ -21,6 +25,7 @@ import torch
 
 from particle_filters_tpu_torch.core.weights import uniform_logw
 from particle_filters_tpu_torch.resampling.soft import log_normalize_lastaxis
+from particle_filters_tpu_torch.utils.timing import span
 
 
 def pairwise_squared_distances(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -49,6 +54,8 @@ def sinkhorn_ot_resample(
     optionally plus a diagnostics dict. All ``n_iters`` damped iterations
     run (no data-dependent early exit); convergence is reported by the last
     dual change, ``converged`` = that change below ``tol``.
+    ``sinkhorn_ot_resample.half_updates`` counts the half-updates run (two
+    an iteration), across calls.
     """
     n = particles.shape[0]
     dtype = particles.dtype
@@ -70,19 +77,21 @@ def sinkhorn_ot_resample(
     f = torch.zeros((n,), dtype=dtype, device=particles.device)
     g = torch.zeros_like(f)
     deltas = []
-    for _ in range(n_iters):
-        f_new = (1.0 - damping) * f + damping * tau_f(g)
-        g_new = (1.0 - damping) * g + damping * tau_g(f_new)
-        if return_diagnostics:
-            deltas.append(torch.maximum(torch.amax(torch.abs(f_new - f)),
-                                        torch.amax(torch.abs(g_new - g))))
-        f, g = f_new, g_new
+    with span("pf.ot.sinkhorn"):
+        for _ in range(n_iters):
+            f_new = (1.0 - damping) * f + damping * tau_f(g)
+            g_new = (1.0 - damping) * g + damping * tau_g(f_new)
+            sinkhorn_ot_resample.half_updates += 2
+            if return_diagnostics:
+                deltas.append(torch.maximum(torch.amax(torch.abs(f_new - f)),
+                                            torch.amax(torch.abs(g_new - g))))
+            f, g = f_new, g_new
 
-    # Transport plan and barycentric projection.
-    log_P = log_a[:, None] + log_b[None, :] + (f[:, None] + g[None, :] - C) / epsilon
-    P = torch.exp(log_P)
-    new_particles = (P.T @ particles) * n  # ÷ b_j with b_j = 1/N
-    new_weights = torch.exp(log_b)
+    with span("pf.ot.project"):  # transport plan and barycentric projection
+        log_P = log_a[:, None] + log_b[None, :] + (f[:, None] + g[None, :] - C) / epsilon
+        P = torch.exp(log_P)
+        new_particles = (P.T @ particles) * n  # ÷ b_j with b_j = 1/N
+        new_weights = torch.exp(log_b)
 
     if not return_diagnostics:
         return new_particles, new_weights
@@ -103,6 +112,9 @@ def sinkhorn_ot_resample(
         "epsilon": epsilon,
     }
     return new_particles, new_weights, diagnostics
+
+
+sinkhorn_ot_resample.half_updates = 0
 
 
 def ot_resample(
