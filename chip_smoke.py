@@ -18,7 +18,11 @@ super-groups get NaN); kernel S (the systematic starts from the weights)
 against the plain chain at rows x N = 1 x 2^24, 1 x 2^20, 1 x 3000,
 100 x 200 and 100 x 10^4 on five weight regimes (run ends within one of
 plain at no more than 1e-5 of the positions, the count printed, and a wrong
-u shown to move more; the starts sorted and bounded; two calls bit-equal).
+u shown to move more; the starts sorted and bounded; two calls bit-equal);
+the Sinkhorn tile kernels (the dual loop and the projection) against their
+plain version at N x d from 1 x 1 to 20000 x 3 on a spread cloud and on a
+point mass with a particle 8 sigma out (potentials, dual changes and new
+particles within stated tolerances, launches by the plan).
 Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
@@ -79,8 +83,10 @@ Then:
   OT, RNN baseline; 8 seeds a row against the JAX package's 64 keys by a
   two-sample test), 20 Adam steps of the trained RNN timed a step, and the
   committed trained GRU's held-out NLL 10x below baseline mode's;
-- the OT path (``benchmarks.ot_large``): dense against blockwise Sinkhorn
-  at N = 4096, and blockwise at N = 4096, 16384 and 65536 with peak memory;
+- the OT path (``benchmarks.ot_large``): dense (on the card, the Sinkhorn
+  tile kernels) against blockwise Sinkhorn at N = 4096, and blockwise at
+  N = 4096, 16384 and 65536 with peak memory; then ``DPF_OT.run_filter`` at
+  N = 8192 for 5 steps, every resample through the tile kernels (counted);
 - the run_chunked path: ParticleFilter on the SV model at N = 2^20 run in
   pieces, interrupted and resumed from its checkpoint, bit-equal to run;
 - determinism: two FusedSIRFilter runs and two ParticleFilter runs (with
@@ -189,6 +195,7 @@ from particle_filters_tpu_torch.models import ParticleFilter
 from particle_filters_tpu_torch.models.kernel_particle_filter import FACTOR_RESID_MAX
 from particle_filters_tpu_torch.ops import launch_probe as x3
 from particle_filters_tpu_torch.ops import resample as b2
+from particle_filters_tpu_torch.ops import sinkhorn_tile as ot_tile
 from particle_filters_tpu_torch.ops import span_resample as x2
 from particle_filters_tpu_torch.ops import systematic_starts as ks
 from particle_filters_tpu_torch.ops import window_resample as x1
@@ -246,7 +253,23 @@ SPF_BETA_TOL = 1e-4  # beta* on the card against the CPU port
 # all 50: python -m particle_filters_tpu_torch.benchmarks.spf).
 SPF_EX2_STEPS = 10
 DPF_TRAIN_STEPS = 20  # Adam steps of the trained RNN timed here (the module takes 300)
-OT_DENSE_TOL = 1e-4  # dense against blockwise Sinkhorn at N = 4096 on the card
+OT_DENSE_TOL = 1e-4  # dense (the tile kernels) against blockwise Sinkhorn at N = 4096
+# The Sinkhorn tile kernels against their plain version: N x d (one
+# particle, a ragged chunk, the DPF-OT cell's 8192, a ragged block, more
+# columns than 8192), each on two clouds, 50 damped iterations at eps 0.1.
+OT_TILE_SHAPES = ((1, 1), (1, 3), (100, 1), (100, 3), (8192, 1), (8192, 3), (8193, 1),
+                  (8193, 3), (20000, 1), (20000, 3))
+OT_TILE_EPS, OT_TILE_DAMPING, OT_TILE_ITERS = 0.1, 0.5, 50
+# Kernel against plain: ex2.approx (2 ulp) against torch.exp2, and sums in
+# other orders (four partials over 32 columns, then chunks, then 16 warps,
+# against torch's), re-rounded by each of the 100 half-updates: the
+# potentials and the dual changes in the cost's units, the new particles in
+# the input cloud's std (the output cloud of a point mass has almost none).
+OT_TILE_POT_TOL, OT_TILE_PARTICLE_TOL = 1e-4, 1e-4
+DPF_OT_N, DPF_OT_T = 8192, 5  # DPF_OT.run_filter through the tile kernels
+# The SFU's exponentials: 16 a clock on each of 132 SMs at 1.98 GHz, the
+# clock behind the 67 TFLOP/s f32 peak.
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 CHUNK_T, CHUNK_SIZE, CHUNK_STOP = 30, 10, 2  # run_chunked at N = 2^20: interrupt after 2
 # The north-star phase: the scaling curve's timed runs of each length after
 # the warm-up (the module takes 4, as the JAX script does).
@@ -1453,6 +1476,116 @@ def run_ot_path(device, card):
     return res
 
 
+def _ot_tile_clouds(gen, n, d, device):
+    """Two clouds of n particles in d dimensions with their log masses: a
+    spread one (weights a softmax of normals), and one whose first weight
+    is near 1 and the rest at the 1e-12 floor, with a particle 8 sigma out,
+    whose row of the cost is far from every other."""
+    x = 0.64 * torch.randn((n, d), generator=gen, device=device)
+    w = torch.softmax(torch.randn((n,), generator=gen, device=device), 0)
+    x2 = x.clone()
+    x2[-1] = 8.0 * 0.64
+    w2 = torch.full((n,), 1e-12, device=device)
+    w2[0] = 1.0
+    out = []
+    for xx, ww in ((x, w), (x2, w2)):
+        ww = torch.clamp(ww, min=1e-12)
+        out.append((xx, torch.log(ww / (torch.sum(ww) + 1e-12)),
+                    torch.full((n,), -math.log(n), device=device)))
+    return out
+
+
+def check_sinkhorn_tile(gen, n, d, device) -> dict:
+    """The tile kernels against their plain version on both of
+    :func:`_ot_tile_clouds`' clouds: the potentials and the dual changes
+    after the loop within ``OT_TILE_POT_TOL``, the new particles within
+    ``OT_TILE_PARTICLE_TOL`` of the input cloud's std, and
+    ``sinkhorn_tile.launches`` raised by the launch plan a call. Returns
+    the worst of each."""
+    worst = {"potentials": 0.0, "particles": 0.0}
+    for x, log_a, log_b in _ot_tile_clouds(gen, n, d, device):
+        kw = dict(epsilon=OT_TILE_EPS, n_iters=OT_TILE_ITERS, damping=OT_TILE_DAMPING)
+        before = ot_tile.sinkhorn_tile.launches
+        f, g, hist = ot_tile.sinkhorn_tile(x, log_a, log_b, deltas=True, **kw)
+        new_x = ot_tile.tile_projection(x, log_a, f, g, epsilon=OT_TILE_EPS)
+        torch.cuda.synchronize()
+        _check(ot_tile.sinkhorn_tile.launches == before + ot_tile.launches(OT_TILE_ITERS),
+               f"Sinkhorn tile at {n} x {d}: {ot_tile.sinkhorn_tile.launches - before} launches, "
+               f"the plan's {ot_tile.launches(OT_TILE_ITERS)}")
+        rf, rg, rx, rhist = ot_tile.sinkhorn_tile_reference(x, log_a, log_b, **kw)
+        pot = max(float((f - rf).abs().max()), float((g - rg).abs().max()),
+                  float((hist - rhist).abs().max()))
+        std = float(x.std()) if n > 1 else 1.0
+        part = float((new_x - rx).abs().max()) / std
+        _check(bool(torch.isfinite(new_x).all()), f"Sinkhorn tile at {n} x {d}: finite output")
+        _check(pot <= OT_TILE_POT_TOL,
+               f"Sinkhorn tile at {n} x {d}: potentials {pot} <= {OT_TILE_POT_TOL}")
+        _check(part <= OT_TILE_PARTICLE_TOL,
+               f"Sinkhorn tile at {n} x {d}: particles {part} <= {OT_TILE_PARTICLE_TOL} of std")
+        worst = {"potentials": max(worst["potentials"], pot),
+                 "particles": max(worst["particles"], part)}
+    print(f"Sinkhorn tile at N={n}, d={d}: potentials within {worst['potentials']:.3e}, "
+          f"particles within {worst['particles']:.3e} of std of the plain version")
+    return worst
+
+
+def run_dpf_ot_path(device, card) -> int:
+    """``DPF_OT.run_filter`` on the SV model at N = ``DPF_OT_N`` for
+    ``DPF_OT_T`` steps: every resample through the tile kernels (the counter
+    raised by the plan a step), finite particles. Returns the launches."""
+    from particle_filters_tpu_torch.models.dpf import DPF_OT
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    sv = simulate_sv_1d(DPF_OT_T, ALPHA, SIGMA, 0.6, seed=5, device=device)
+
+    def transition(g, x, t):
+        return ALPHA * x + SIGMA * torch.randn(x.shape, generator=g, device=x.device)
+
+    def loglik(x, y, t):
+        return -0.5 * (y * y / 0.36 * torch.exp(-x[:, 0]) + x[:, 0] + 2 * math.log(0.6))
+
+    filt = DPF_OT(DPF_OT_N, 1, transition, loglik, epsilon=0.1, n_sinkhorn_iters=50,
+                  damping=0.5, device=device)
+    before = ot_tile.sinkhorn_tile.launches
+    t0 = time.perf_counter()
+    ps, _, log_z = filt.run_filter(gen, sv.Y[:, None], [0.0], [[0.64]],
+                                   return_log_evidence=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = ot_tile.sinkhorn_tile.launches - before
+    _check(launched == DPF_OT_T * ot_tile.launches(50),
+           f"DPF_OT: {launched} tile launches over {DPF_OT_T} steps, the plan's "
+           f"{DPF_OT_T * ot_tile.launches(50)}")
+    _check(bool(torch.isfinite(ps).all()) and bool(torch.isfinite(log_z)),
+           "DPF_OT: finite particles and log-evidence")
+    print(f"DPF_OT N={DPF_OT_N} T={DPF_OT_T}: {launched} tile launches, {secs:.4f} s (host "
+          f"clock, the first call included)  [{card}]")
+    return launched
+
+
+def time_sinkhorn_tile(gen, device, card, n=8192):
+    """The half-update and the projection at N = ``n``, d = 1, by CUDA-graph
+    replay (the dual loop's 100 launches a call, over 100), beside the plain
+    version's half-update and the exponentials' bound. Returns ``(ms,
+    plain_ms, None, (bound_ms, "exps"))`` of a half-update."""
+    x, log_a, log_b = _ot_tile_clouds(gen, n, 1, device)[0]
+    kw = dict(epsilon=OT_TILE_EPS, damping=OT_TILE_DAMPING)
+    f, g, _ = ot_tile.sinkhorn_tile(x, log_a, log_b, n_iters=OT_TILE_ITERS, **kw)
+    half = [_graph_ms(lambda: ot_tile.sinkhorn_tile(x, log_a, log_b, n_iters=OT_TILE_ITERS,
+                                                     **kw), reps=4) / (2 * OT_TILE_ITERS)
+            for _ in range(2)]
+    proj = _graph_ms(lambda: ot_tile.tile_projection(x, log_a, f, g, epsilon=OT_TILE_EPS))
+    eps, k, xs = ot_tile.scales(OT_TILE_EPS)
+    plain = _time_ms(lambda: ot_tile._half_update(x * xs, g, log_b, f, eps, k, OT_TILE_DAMPING,
+                                                  ot_tile.TILE), reps=2, samples=3)
+    bound = n * n / SFU_EXP_PER_S * 1e3
+    ms = sum(half) / 2
+    print(f"Sinkhorn tile at N={n}, d=1: half-update {ms:.6f} ms ({half[0]:.6f}, {half[1]:.6f}), "
+          f"projection {proj:.6f} ms, plain half-update {plain:.6f} ms; bound {bound:.6f} ms "
+          f"(exps) -> {bound / ms:.3f} of it, projection {bound / proj:.3f}  [{card}]")
+    return ms, plain, None, (bound, "exps"), proj
+
+
 def run_chunked_path(device, card):
     """``ParticleFilter.run_chunked`` on the SV model at N = 2^20: a run
     interrupted after ``CHUNK_STOP`` pieces and resumed from its checkpoint
@@ -1782,9 +1915,9 @@ def _build_all(gen) -> None:
     compiles (two models, drawn and injected normals)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:
-        for fut in [pool.submit(m._library) for m in (b2, ks, x1, x2, x3)]:
+        for fut in [pool.submit(m._library) for m in (b2, ks, x1, x2, x3, ot_tile)]:
             fut.result()
-    print(f"nvcc build+load of B2, S, X1, X2, X3 {time.perf_counter() - t0:.2f} s")
+    print(f"nvcc build+load of B2, S, X1, X2, X3, OT {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     device = torch.device("cuda")
     for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
@@ -1817,7 +1950,9 @@ def main() -> None:
                       + [check_b2_trials(gen, t, n, d, device) for t, n, d in B2_TRIAL_SHAPES]),
             "B1": max(check_b1(gen, n, device) for n in (N, EXACT_N)), "X3": check_x3(device),
             "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device),
-            "S": max(check_starts(gen, rows, n, device) for rows, n in S_SHAPES)}
+            "S": max(check_starts(gen, rows, n, device) for rows, n in S_SHAPES),
+            "OT": max(check_sinkhorn_tile(gen, n, d, device)["particles"]
+                      for n, d in OT_TILE_SHAPES)}
     check_exact(gen, device)
     torch.cuda.synchronize()
 
@@ -1833,6 +1968,7 @@ def main() -> None:
     spf_counts = run_spf_path(device, card)
     run_dpf_path(device, card)
     run_ot_path(device, card)
+    counts["OT"] = run_dpf_ot_path(device, card)
     chunked_counts = run_chunked_path(device, card)
     par_counts = run_parallel_path(gen, device, card)
     sv_counts = run_sv_columns(device, card)
@@ -1854,6 +1990,7 @@ def main() -> None:
     x3_ms, add_ms = time_x3_pairs(gen, card)
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
     times["S"] = s_times[(1, N)][:2] + (None, s_times[(1, N)][2])
+    times["OT"] = time_sinkhorn_tile(gen, device, card)[:4]
     fused_ms = time_fused_run(N, card, fused_run)
     print(f"fused SV run N={N} T={T}: bench twin {bench_ms:.4f} ms/step (best of "
           f"{bench.RUNS}, host clock to a sync) against {fused_ms:.4f} (median of 5, CUDA "
@@ -1878,6 +2015,9 @@ def main() -> None:
         ("S", "S systematic starts from the weights", "cuda",
          "particle_filters_tpu_torch/csrc/systematic_starts.cu",
          "no TPU kernel: replaces the torch starts chain"),
+        ("OT", "Sinkhorn half-update tile (cost in registers), N = 8192", "cuda",
+         "particle_filters_tpu_torch/csrc/sinkhorn_tile.cu",
+         "no TPU kernel: replaces the dense torch Sinkhorn"),
     )
     kernels = []
     for key, name, route, source, replaces in rows:

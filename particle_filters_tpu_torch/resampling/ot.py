@@ -8,13 +8,26 @@ OT-distance / sparsity / dual diagnostics. Each half-update is one
 logsumexp over the whole cost matrix; the ``n_iters`` iterations are
 unrolled (a Python loop), so autograd differentiates through them.
 
+Two paths, chosen by what the call shows:
+
+- a float32 cloud (N, d ≤ 4) on the card, unbatched (not under
+  ``torch.func`` transforms), with ε and the damping Python numbers and no
+  input that autograd must differentiate, takes the tile kernels of
+  ``ops/sinkhorn_tile.py``: the cost is formed in registers, the dual loop
+  is one library call (2·``n_iters`` launches) and the projection one
+  launch, and no N × N tensor exists (but for the diagnostics);
+- every other call (CPU tensors, the gradient, the vmapped (ε × damping)
+  sweep of ``examples/ex08_dpf_ot_tuning.py``) takes the unrolled torch ops
+  below.
+
 Program spans (``utils/timing.py::span``, built only while a profiler
 records): ``pf.ot.sinkhorn`` around the dual loop, ``pf.ot.project`` around
-the plan and the barycentric projection.
+the plan and the barycentric projection, on both paths.
 
-The cost comes from an x·yᵀ product, and (f⊕g−C)/ε at ε = 0.01 multiplies
-any error in C by 100: on the card it must be formed with TF32 off, which
-the caller sets (``torch.backends.cuda.matmul.allow_tf32 = False``).
+On the torch path the cost comes from an x·yᵀ product, and (f⊕g−C)/ε at
+ε = 0.01 multiplies any error in C by 100: on the card it must be formed
+with TF32 off, which the caller sets
+(``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
 
 from __future__ import annotations
@@ -22,8 +35,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from particle_filters_tpu_torch.core.weights import uniform_logw
+from particle_filters_tpu_torch.ops.sinkhorn_tile import MAX_D, sinkhorn_tile, tile_projection
 from particle_filters_tpu_torch.resampling.soft import log_normalize_lastaxis
 from particle_filters_tpu_torch.utils.timing import span
 
@@ -63,6 +78,9 @@ def sinkhorn_ot_resample(
     w = torch.clamp(weights, min=min_val)
     a = w / (torch.sum(w) + min_val)  # source mass
     log_a = torch.log(a)
+    if _on_tiles(particles, weights, epsilon, damping):
+        return _tile_resample(particles.contiguous(), log_a, epsilon=epsilon, n_iters=n_iters,
+                              tol=tol, damping=damping, return_diagnostics=return_diagnostics)
     log_b = torch.full((n,), -math.log(n), dtype=dtype, device=particles.device)
 
     C = pairwise_squared_distances(particles, particles)
@@ -96,13 +114,20 @@ def sinkhorn_ot_resample(
     if not return_diagnostics:
         return new_particles, new_weights
 
-    history = torch.stack(deltas)
-    diagnostics = {
+    return new_particles, new_weights, _diagnostics(torch.stack(deltas), P, C, f, g, epsilon,
+                                                    tol)
+
+
+sinkhorn_ot_resample.half_updates = 0
+
+
+def _diagnostics(history, P, C, f, g, epsilon, tol) -> dict:
+    return {
         "final_delta": history[-1],
         "converged": history[-1] < tol,
         "convergence_history": history,
         "ot_distance": torch.sum(P * C),
-        "transport_plan_sparsity": torch.mean((P > 1e-6).to(dtype)),
+        "transport_plan_sparsity": torch.mean((P > 1e-6).to(P.dtype)),
         "dual_variables": {
             "f_mean": torch.mean(f),
             "f_std": torch.std(f, unbiased=False),
@@ -111,10 +136,43 @@ def sinkhorn_ot_resample(
         },
         "epsilon": epsilon,
     }
-    return new_particles, new_weights, diagnostics
 
 
-sinkhorn_ot_resample.half_updates = 0
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _on_tiles(particles, weights, epsilon, damping) -> bool:
+    """Whether a call takes the tile kernels (the module docstring's
+    conditions)."""
+    return (_on_card(particles) and particles.ndim == 2
+            and particles.dtype == weights.dtype == torch.float32
+            and 1 <= particles.shape[1] <= MAX_D
+            and isinstance(epsilon, (int, float)) and isinstance(damping, (int, float))
+            and not is_functorch_wrapped_tensor(particles)
+            and not is_functorch_wrapped_tensor(weights)
+            and not (torch.is_grad_enabled()
+                     and (particles.requires_grad or weights.requires_grad)))
+
+
+def _tile_resample(particles, log_a, *, epsilon, n_iters, tol, damping, return_diagnostics):
+    """:func:`sinkhorn_ot_resample` on the tile kernels: the dual loop in one
+    library call, then the projection; with ``return_diagnostics`` the plan
+    and the cost are formed from the potentials for the diagnostics alone."""
+    log_b = torch.full_like(log_a, -math.log(particles.shape[0]))
+    with span("pf.ot.sinkhorn"):
+        f, g, history = sinkhorn_tile(particles, log_a, log_b, epsilon=epsilon,
+                                      n_iters=n_iters, damping=damping,
+                                      deltas=return_diagnostics)
+        sinkhorn_ot_resample.half_updates += 2 * n_iters
+    with span("pf.ot.project"):
+        new_particles = tile_projection(particles, log_a, f, g, epsilon=epsilon)
+        new_weights = torch.exp(log_b)
+    if not return_diagnostics:
+        return new_particles, new_weights
+    C = pairwise_squared_distances(particles, particles)
+    P = torch.exp(log_a[:, None] + log_b[None, :] + (f[:, None] + g[None, :] - C) / epsilon)
+    return new_particles, new_weights, _diagnostics(history, P, C, f, g, epsilon, tol)
 
 
 def ot_resample(

@@ -1,5 +1,5 @@
-"""Kernels B1 and B2 and probes X1-X3 against their plain versions on an
-NVIDIA GPU.
+"""Kernels B1, B2 and S, the Sinkhorn tile kernels and probes X1-X3
+against their plain versions on an NVIDIA GPU.
 
 The checks of ``chip_smoke.py`` (B2 bit-equal to its plain version at the
 weight regimes of the TPU kernel's tiers and at point masses; B1 with
@@ -19,7 +19,10 @@ and the exact run ends at N = 2^25 on the card equal the CPU's. Kernel S
 (the systematic starts) against the plain chain at the SV cells' 2^24 and
 2^20, a ragged 3000 and the flows' 100 x 200 and 100 x 10^4, on five
 weight regimes, differing at no more than 1e-5 of the run ends
-(``chip_smoke.check_starts``). Run on a GPU host with
+(``chip_smoke.check_starts``). The Sinkhorn tile kernels against their
+plain version from N = 1 to 20000 at d = 1 and 3, and ``DPF_OT.run_filter``
+at N = 8192 resampling through them (``chip_smoke.check_sinkhorn_tile``,
+``chip_smoke.run_dpf_ot_path``). Run on a GPU host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -211,3 +214,33 @@ def test_exact_run_ends_card_equals_cpu_at_2_25(cuda_device):
 
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     chip_smoke.check_exact(gen, cuda_device)
+
+
+OT_TILE_CASES = [(1, 1), (1, 3), (100, 1), (100, 3), (8192, 1), (8192, 3), (8193, 1), (8193, 3),
+                 (20000, 1), (20000, 3)]
+
+
+@pytest.mark.parametrize("n,d", OT_TILE_CASES)
+def test_sinkhorn_tile_matches_plain(cuda_device, n, d):
+    """The Sinkhorn tile kernels (50 damped iterations, then the projection)
+    against their plain version on a spread cloud and on a point mass with a
+    particle 8 sigma out: potentials and dual changes within
+    ``chip_smoke.OT_TILE_POT_TOL``, new particles within
+    ``OT_TILE_PARTICLE_TOL`` of the input cloud's std, and the launches the plan
+    states a call (``chip_smoke.check_sinkhorn_tile`` raises on any miss)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    worst = chip_smoke.check_sinkhorn_tile(gen, n, d, cuda_device)
+    assert worst["potentials"] <= chip_smoke.OT_TILE_POT_TOL
+    assert worst["particles"] <= chip_smoke.OT_TILE_PARTICLE_TOL
+
+
+def test_dpf_ot_resamples_through_the_tile_kernels(cuda_device):
+    """``DPF_OT.run_filter`` at N = 8192: every step's resample launches the
+    plan's 2·50 + 1 tile kernels."""
+    import chip_smoke
+
+    from particle_filters_tpu_torch.ops.sinkhorn_tile import launches
+
+    assert chip_smoke.run_dpf_ot_path(cuda_device, "") == chip_smoke.DPF_OT_T * launches(50)
