@@ -162,6 +162,7 @@ import torch
 
 import torch.distributed as dist
 
+from h100_bench.roofline import FP32_OPS_PER_S, HBM_BYTES_PER_S, least_s
 from particle_filters_tpu_torch import entry
 from particle_filters_tpu_torch.benchmarks import (
     bench,
@@ -218,13 +219,11 @@ from particle_filters_tpu_torch.resampling.hard import (
 )
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
 from particle_filters_tpu_torch.utils.timing import card as card_of
-from particle_filters_tpu_torch.utils.timing import kernel_records
+from particle_filters_tpu_torch.utils.timing import profile_device
 
 N = 1 << 20
 T = 200
 ALPHA, SIGMA, BETA = 0.95, 0.2, 1.0
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two orders
 SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
 B2_RAGGED_N = 3000  # B2's checks again where the last block is ragged
@@ -267,9 +266,6 @@ OT_TILE_EPS, OT_TILE_DAMPING, OT_TILE_ITERS = 0.1, 0.5, 50
 # the input cloud's std (the output cloud of a point mass has almost none).
 OT_TILE_POT_TOL, OT_TILE_PARTICLE_TOL = 1e-4, 1e-4
 DPF_OT_N, DPF_OT_T = 8192, 5  # DPF_OT.run_filter through the tile kernels
-# The SFU's exponentials: 16 a clock on each of 132 SMs at 1.98 GHz, the
-# clock behind the 67 TFLOP/s f32 peak.
-SFU_EXP_PER_S = 132 * 16 * 1.98e9
 CHUNK_T, CHUNK_SIZE, CHUNK_STOP = 30, 10, 2  # run_chunked at N = 2^20: interrupt after 2
 # The north-star phase: the scaling curve's timed runs of each length after
 # the warm-up (the module takes 4, as the JAX script does).
@@ -821,17 +817,10 @@ def check_step_launches(n, device):
     gen = torch.Generator(device=device).manual_seed(5)
     state0 = f.initialize(gen, [0.0], [[SIGMA**2 / (1 - ALPHA**2)]])
     f.run(gen, state0, sv.Y[:2, None])  # warm-up
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     counts = {}
     for t_len in (20, 40):
-        with torch.profiler.profile(activities=acts) as prof:
-            f.run(gen, state0, sv.Y[:t_len, None])
-            torch.cuda.synchronize()
-        # The program's spans (``pf.*``) show on the device timeline as
-        # annotations, not kernels.
-        kernels = [(e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith(("Memcpy", "Memset", "pf."))]
+        ops = profile_device(lambda: f.run(gen, state0, sv.Y[:t_len, None]), top=None).top
+        kernels = [(k, c) for _, c, k in ops if not k.startswith(("Memcpy", "Memset"))]
         if not kernels:
             print("step launches: not measured (profiler saw no device time)")
             return
@@ -1112,11 +1101,11 @@ def _graph_ms(fn, reps: int = 16, samples: int = 5) -> float:
 
 
 def _bound(nbytes: int, ops: float):
-    """The least time the card could take (ms) and what sets it: each input
-    byte read once and each output byte written once at 3.35 TB/s, or the
-    operations at 67 TFLOP/s fp32, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time the card could take (ms, ``h100_bench/roofline.py``)
+    and what sets it: each input byte read once and each output byte
+    written once, or the operations at the fp32 peak, whichever is longer."""
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S else "operations"
+    return least_s(nbytes, ops) * 1e3, by
 
 
 def _nbytes(*tensors) -> int:
@@ -1374,22 +1363,21 @@ def time_fused_run(n, card, fused_run) -> float:
     run_ms = _time_ms(lambda: filt.run(gen, state0, zs), reps=1)
     print(f"fused SV run N={n} T={T}: {run_ms / T:.4f} ms/step, "
           f"{n * T / (run_ms * 1e-3):.4e} particle-steps/s  [{card}]")
-    rows = kernel_records(lambda: filt.run(gen, state0, zs))
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    if not rows:
+    prof = profile_device(lambda: filt.run(gen, state0, zs), top=None)
+    if not prof.top:
         print("fused run device breakdown: not measured (profiler saw no device time)")
         return run_ms / T
-    print(f"fused run device busy {busy_ms:.3f} ms of {run_ms:.3f} ms wall "
-          f"({busy_ms / run_ms:.3f}; unprofiled wall)  [{card}]")
+    print(f"fused run device busy {prof.busy_ms:.3f} ms of {run_ms:.3f} ms wall "
+          f"({prof.busy_ms / run_ms:.3f}; unprofiled wall)  [{card}]")
     ported_ms = 0.0
     for label, kernel in (("B1", "_fused_step_kernel"), ("B2", "merge_path_resample_kernel")):
-        hits = [r for r in rows if kernel in r[2]]
-        ms, count = sum(r[0] for r in hits) / 1e3, sum(r[1] for r in hits)
+        hits = [r for r in prof.top if kernel in r[2]]
+        ms, count = sum(r[0] for r in hits), sum(r[1] for r in hits)
         ported_ms += ms
         print(f"  {label} {kernel}: {ms:.3f} ms device time, x{count}")
-    print(f"  torch ops around the kernels: {busy_ms - ported_ms:.3f} ms device time")
-    for us, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"  {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    print(f"  torch ops around the kernels: {prof.busy_ms - ported_ms:.3f} ms device time")
+    for ms, count, key in prof.top[:8]:
+        print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
     return run_ms / T
 
 
@@ -1578,7 +1566,7 @@ def time_sinkhorn_tile(gen, device, card, n=8192):
     eps, k, xs = ot_tile.scales(OT_TILE_EPS)
     plain = _time_ms(lambda: ot_tile._half_update(x * xs, g, log_b, f, eps, k, OT_TILE_DAMPING,
                                                   ot_tile.TILE), reps=2, samples=3)
-    bound = n * n / SFU_EXP_PER_S * 1e3
+    bound = n * n / ot_tile.SFU_EXP_PER_S * 1e3
     ms = sum(half) / 2
     print(f"Sinkhorn tile at N={n}, d=1: half-update {ms:.6f} ms ({half[0]:.6f}, {half[1]:.6f}), "
           f"projection {proj:.6f} ms, plain half-update {plain:.6f} ms; bound {bound:.6f} ms "
@@ -1914,9 +1902,11 @@ def _build_all(gen) -> None:
     """One nvcc per CUDA source, all started together; then B1's Triton
     compiles (two models, drawn and injected normals)."""
     t0 = time.perf_counter()
+    kernels = (b2._KERNEL, ks._KERNEL, x1._KERNEL, x2._KERNEL, x3._KERNEL, ot_tile._DUAL)
     with ThreadPoolExecutor(max_workers=4) as pool:
-        for fut in [pool.submit(m._library) for m in (b2, ks, x1, x2, x3, ot_tile)]:
+        for fut in [pool.submit(k.entry) for k in kernels]:
             fut.result()
+    ot_tile._PROJECT.entry()  # in the library just built for the dual loop
     print(f"nvcc build+load of B2, S, X1, X2, X3, OT {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     device = torch.device("cuda")

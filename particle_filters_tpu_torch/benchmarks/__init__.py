@@ -17,8 +17,6 @@
   LEDH over 16 seeds), the twin of ``bench_mat_flows``;
 - ``kpf``: the kernel particle filter on Lorenz-96 at nx = 1000, against
   the JAX package's posteriors;
-- ``main_path_turns``: ``chip_smoke.py``'s main path on this tree and on
-  another checkout in turns, each run in its own process;
 - ``spf``: the stochastic particle flow's example 1 (the twin of
   ``bench_spf``) and example 2 (``examples/10_spf_example2.py``, with the
   SIR PF at N = 10⁴ through B2);

@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from particle_filters_tpu_torch.ops import _nvcc
-from particle_filters_tpu_torch.ops.resample import resample_by_starts_reference
+from particle_filters_tpu_torch.ops import resample as b2
 from particle_filters_tpu_torch.resampling.hard import _systematic_starts
 from particle_filters_tpu_torch.utils.timing import card_line
 
@@ -76,7 +76,7 @@ def _build(tag: str, src: str):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {tag}:\n{res.stderr}")
     fn = ctypes.CDLL(str(so)).pf_resample_by_starts
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [*b2._KERNEL.argtypes, ctypes.c_void_p]  # the stream last
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,9 +133,9 @@ def run(device, card: str = "") -> dict:
                 if err:
                     raise RuntimeError(f"B2 {phase}: CUDA error {err}")
             calls[phase] = call
-        fns["full"](sets[0][0].data_ptr(), sets[0][1].data_ptr(), outs[0].data_ptr(), N, 1,
-                    torch.cuda.current_stream().cuda_stream)
-        if not torch.equal(outs[0], resample_by_starts_reference(*sets[0])):
+        fns["full"](sets[0][0].data_ptr(), sets[0][1].data_ptr(), outs[0].data_ptr(), N, N,
+                    1, 0, torch.cuda.current_stream().cuda_stream)
+        if not torch.equal(outs[0], b2.resample_by_starts_reference(*sets[0])):
             raise RuntimeError("b2_phases: the full kernel differs from its plain version")
         times = {phase: [] for phase in calls}
         for phase in list(calls) + list(calls)[::-1]:

@@ -12,9 +12,10 @@ best run of ``m_hi`` steps minus the best of ``m_lo`` = 200, over
 N ≤ 2¹⁶ and 1700 above, as the JAX script takes them. A CUDA graph cannot
 capture the run: ``FusedSIRFilter.run`` reads the resample trigger on the
 host every step. Each row also has the resample fraction of the last m_hi
-run and the card's busy share of one profiled run of m_lo steps (kernel time
-over the wall time of an unprofiled run of the same length), the number that
-says whether the host or the card sets the pace at that N.
+run and the card's busy share of one profiled run of m_lo steps (the union
+of its device intervals over the wall time of an unprofiled run of the same
+length), the number that says whether the host or the card sets the pace
+at that N.
 
 Writes JSON only, and only with ``--out``: no figure (the card's machine has
 no matplotlib). Raises without a card unless given ``--device cpu``, where
@@ -42,7 +43,7 @@ from particle_filters_tpu_torch.simulators import simulate_sv_1d
 from particle_filters_tpu_torch.utils.timing import (
     card,
     card_line,
-    kernel_records,
+    profile_device,
     resolve_device,
     sync,
 )
@@ -58,20 +59,18 @@ def m_hi_for(n: int) -> int:
 
 
 def busy_share(run, device) -> float | None:
-    """Kernel time of one profiled ``run()`` over the wall time of an
-    unprofiled one (both to a sync); None off the card or where the
-    profiler saw no device time."""
+    """The card's busy time in one profiled ``run()`` (the union of its
+    device intervals) over the wall time of an unprofiled one (both to a
+    sync); None off the card or where the profiler saw no device time."""
     if device.type != "cuda":
         return None
     sync(device)
     t0 = time.perf_counter()
     run()
     sync(device)
-    wall = time.perf_counter() - t0
-    rows = kernel_records(run)
-    if not rows:
-        return None
-    return sum(r[0] for r in rows) * 1e-6 / wall
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_device(run)
+    return prof.busy_ms / wall_ms if prof.top else None
 
 
 def measure(n: int, device="cuda", m_lo: int = M_LO, m_hi: int | None = None,

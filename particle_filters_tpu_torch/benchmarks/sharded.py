@@ -520,7 +520,7 @@ def run_across(ranks: int, *, backend="nccl", device_type="cuda", n=N, t=T, n_bi
         if torch.cuda.device_count() < ranks:
             raise RuntimeError(f"{ranks} ranks need {ranks} cards; "
                                f"{torch.cuda.device_count()} visible.")
-        b2._library()  # built here once, not by every rank at the same time
+        b2._KERNEL.entry()  # built here once, not by every rank at the same time
     results = run_ranks(rank_run, ranks, backend=backend, timeout_s=timeout_s,
                         args=(n, t, n_big, t_big, device_type))
     return check_across(results, n, t, n_big, t_big, counted=device_type == "cuda")

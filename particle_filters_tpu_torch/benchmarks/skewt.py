@@ -29,7 +29,7 @@ import sys
 
 import torch
 
-from particle_filters_tpu_torch.benchmarks.snlg import _timed, profile_top, run_flow
+from particle_filters_tpu_torch.benchmarks.snlg import _timed, run_flow
 from particle_filters_tpu_torch.core.linalg import mvn_logpdf_chol
 from particle_filters_tpu_torch.models import (
     EDHConfig,
@@ -44,7 +44,7 @@ from particle_filters_tpu_torch.models import (
 )
 from particle_filters_tpu_torch.models.extended_kalman_filter import _jacfwd
 from particle_filters_tpu_torch.simulators.sensor_network_skewt import load_npz
-from particle_filters_tpu_torch.utils.timing import card_line, sync
+from particle_filters_tpu_torch.utils.timing import card_line, profile_device, sync
 
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "skewt_d144.npz"
 D, T, TRIALS = 144, 10, 100
@@ -155,7 +155,8 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
     ``b2_launches``, ``finite`` (the whole history) and, on the card,
     ``peak_mib`` (``torch.cuda.max_memory_allocated`` over the timed run);
     for the tags in ``profile`` a ``PROFILE_STEPS``-step run under the
-    profiler: its wall and device ms and ``top_ops``."""
+    profiler: its wall ms, the card's busy ms (the union of its device
+    intervals) and ``top_ops``."""
     device = torch.device(device)
     X, Z, Sigma, LQ = load_data(device) if data is None else data
     trials, steps = Z.shape[:2]
@@ -185,10 +186,10 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
         if device.type == "cuda":
             out[tag]["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
         if tag in profile:
-            wall_ms, device_ms, top = profile_top(
-                lambda: run_flow(filt, noise, Z[:, :PROFILE_STEPS], Sigma, gen), device)
-            out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=wall_ms,
-                            profile_device_ms=device_ms, top_ops=top)
+            prof = profile_device(
+                lambda: run_flow(filt, noise, Z[:, :PROFILE_STEPS], Sigma, gen))
+            out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=prof.wall_ms,
+                            profile_device_ms=prof.busy_ms, top_ops=prof.top)
     return out
 
 

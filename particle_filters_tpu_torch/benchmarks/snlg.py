@@ -42,7 +42,7 @@ from particle_filters_tpu_torch.models import (
 )
 from particle_filters_tpu_torch.ops.resample import resample_by_starts
 from particle_filters_tpu_torch.simulators.sensor_network_lg import make_grid_coords, se_kernel_cov
-from particle_filters_tpu_torch.utils.timing import card_line, sync
+from particle_filters_tpu_torch.utils.timing import card_line, profile_device, sync
 
 D, T, TRIALS, SZ, AL = 64, 50, 100, 2.0, 0.9
 # The JAX package's MSEs at this column (benchmarks/results.json, results.snlg_d64).
@@ -147,28 +147,13 @@ def run_flow(filt, noise, Z, Sigma, generator):
     return hist, resample_by_starts.launches
 
 
-def profile_top(fn, device, top: int = 8):
-    """``fn()`` under ``torch.profiler``: its wall ms (profiled), its device
-    ms (all kernels' self time) and its ``top`` device ops by self device
-    time [(ms, calls, name)]; no ops where the profiler saw no device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    return wall_ms, sum(r[0] for r in rows), sorted(rows, reverse=True)[:top]
-
-
 def print_profile(label, fn, card="", top: int = 5):
     """``fn()`` once on the card under the profiler: its device busy share
     and top device ops, printed."""
-    wall_ms, device_ms, ops = profile_top(fn, torch.device("cuda"), top)
-    print(f"profiled {label}: device busy {device_ms:.3f} ms of {wall_ms:.3f} ms wall "
-          f"({device_ms / wall_ms:.3f})  [{card}]")
-    for ms, calls, name in ops:
+    prof = profile_device(fn, top)
+    print(f"profiled {label}: device busy {prof.busy_ms:.3f} ms of {prof.wall_ms:.3f} ms wall "
+          f"({prof.busy_ms / prof.wall_ms:.3f})  [{card}]")
+    for ms, calls, name in prof.top:
         print(f"  {ms:10.3f} ms  x{calls:<6d} {name[:90]}")
 
 
@@ -179,7 +164,8 @@ def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
     trial-steps that resampled), ``resample_steps`` (steps with any) and
     ``b2_launches`` for the flows, and for the tags in ``profile`` a
     ``PROFILE_STEPS``-step run under the profiler (on the card): its wall
-    and device ms and ``top_ops``."""
+    ms, the card's busy ms (the union of its device intervals) and
+    ``top_ops``."""
     device = torch.device(device)
     Sigma_np, (X2, Z2), (X1, Z1) = make_data(trials, steps, d)
     Sigma = torch.as_tensor(Sigma_np, device=device)
@@ -208,10 +194,10 @@ def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
                         resample_steps=int(hist["resampled"].any(dim=0).sum()),
                         b2_launches=launches)
         if tag in profile:
-            wall_ms, device_ms, top = profile_top(
-                lambda: run_flow(filt, noise, Z2[:, :PROFILE_STEPS], Sigma, gen), device)
-            out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=wall_ms,
-                            profile_device_ms=device_ms, top_ops=top)
+            prof = profile_device(
+                lambda: run_flow(filt, noise, Z2[:, :PROFILE_STEPS], Sigma, gen))
+            out[tag].update(profile_steps=PROFILE_STEPS, profile_wall_ms=prof.wall_ms,
+                            profile_device_ms=prof.busy_ms, top_ops=prof.top)
     return out
 
 

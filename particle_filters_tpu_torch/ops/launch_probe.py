@@ -13,24 +13,16 @@ import ctypes
 
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 
 TILE = (8, 128)
-_LIB = "pf_launch_probe"
-_SOURCES = ("launch_probe.cu",)
+_KERNEL = Kernel("X3 launch probe", "pf_launch_probe", ("launch_probe.cu",), "pf_add_one",
+                 (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int))
 
 
 def add_one_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version of X3."""
     return x + 1.0
-
-
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    fn = lib.pf_add_one
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
@@ -47,13 +39,8 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         return add_one_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}.")
-    lib = _library()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pf_add_one(x.data_ptr(), out.data_ptr(), x.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"X3 launch probe failed: CUDA error {err}.")
+    _KERNEL(x.device, x.data_ptr(), out.data_ptr(), x.numel())
     add_one.launches += 1
     return out
 

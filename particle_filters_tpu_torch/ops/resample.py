@@ -39,10 +39,10 @@ import ctypes
 
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 
-_LIB = "pf_resample"
-_SOURCES = ("systematic_resample.cu",)
+_KERNEL = Kernel("B2 resample kernel", "pf_resample", ("systematic_resample.cu",),
+                 "pf_resample_by_starts", (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4)
 
 
 def resample_by_starts_reference(
@@ -79,14 +79,6 @@ def _check(particles: torch.Tensor, starts: torch.Tensor, n_out: int, offset: in
         raise ValueError(f"need 0 <= offset and offset + n_out < 2**31; got {offset}.")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    fn = lib.pf_resample_by_starts
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor, n_out=None,
                        offset: int = 0) -> torch.Tensor:
     """Systematic-resampled values of (M, d) f32 ``particles`` given their
@@ -104,19 +96,12 @@ def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor, n_out=None
         return resample_by_starts_reference(particles, starts, n_out, offset)
     if particles.device.type != "cuda":
         raise ValueError(f"unsupported device {particles.device}.")
-    lib = _library()
     if starts.data_ptr() % 16:  # the kernel stages the starts with 16-byte copies
         starts = starts.clone()
     m, d = particles.shape
     out = particles.new_empty((n_out, d))
-    with torch.cuda.device(particles.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pf_resample_by_starts(
-            particles.data_ptr(), starts.data_ptr(), out.data_ptr(), m, n_out, d, offset,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"B2 resample kernel launch failed: CUDA error {err}.")
+    _KERNEL(particles.device, particles.data_ptr(), starts.data_ptr(), out.data_ptr(), m,
+            n_out, d, offset)
     resample_by_starts.launches += 1
     return out
 

@@ -38,13 +38,19 @@ import math
 import numpy as np
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 
-_LIB = "pf_sinkhorn_tile"
-_SOURCES = ("sinkhorn_tile.cu",)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DUAL = Kernel("Sinkhorn tile kernel", "pf_sinkhorn_tile", ("sinkhorn_tile.cu",),
+               "pf_sinkhorn_dual", (_P,) * 6 + (_I,) * 3 + (_F,) * 4)
+_PROJECT = Kernel("Sinkhorn projection kernel", "pf_sinkhorn_tile", ("sinkhorn_tile.cu",),
+                  "pf_sinkhorn_project", (_P,) * 5 + (_I,) * 2 + (_F,) * 3)
 TILE = 32  # columns a running-max step: kChunk in csrc/sinkhorn_tile.cu
 MAX_D = 4  # dimensions the kernels take: kMaxD
 LOG2E = 1.4426950408889634
+# What bounds a pass: N² exponentials on the SFU, 16 a clock on each of the
+# H100's 132 SMs at 1.98 GHz (the clock behind its 67 TFLOP/s f32 peak).
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def scales(epsilon: float) -> tuple[float, float, float]:
@@ -146,21 +152,6 @@ def _check(particles: torch.Tensor, *vectors: torch.Tensor) -> None:
             raise ValueError(f"expected ({n},) vectors; got {tuple(v.shape)}.")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    lib.pf_sinkhorn_dual.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                                     + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    lib.pf_sinkhorn_dual.restype = ctypes.c_int
-    lib.pf_sinkhorn_project.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    lib.pf_sinkhorn_project.restype = ctypes.c_int
-    return lib
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def sinkhorn_tile(particles, log_a, log_b, *, epsilon: float, n_iters: int, damping: float,
                   deltas: bool = False):
     """The damped dual loop on the card: ``(f, g, history)`` after
@@ -174,12 +165,9 @@ def sinkhorn_tile(particles, log_a, log_b, *, epsilon: float, n_iters: int, damp
     f = log_a.new_empty((n,))
     g = log_a.new_empty((n,))
     history = log_a.new_empty((n_iters,)) if deltas else None
-    err = _library().pf_sinkhorn_dual(
-        particles.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), f.data_ptr(), g.data_ptr(),
-        None if history is None else history.data_ptr(), n, d, int(n_iters), eps, k, xs,
-        float(damping), _stream(particles.device))
-    if err != 0:
-        raise RuntimeError(f"Sinkhorn tile kernel launch failed: CUDA error {err}.")
+    _DUAL(particles.device, particles.data_ptr(), log_a.data_ptr(), log_b.data_ptr(),
+          f.data_ptr(), g.data_ptr(), None if history is None else history.data_ptr(), n, d,
+          int(n_iters), eps, k, xs, float(damping))
     sinkhorn_tile.launches += 2 * int(n_iters)
     return f, g, history
 
@@ -195,10 +183,7 @@ def tile_projection(particles, log_a, f, g, *, epsilon: float):
     n, d = particles.shape
     eps, k, xs = scales(epsilon)
     out = particles.new_empty((n, d))
-    err = _library().pf_sinkhorn_project(
-        particles.data_ptr(), log_a.data_ptr(), f.data_ptr(), g.data_ptr(), out.data_ptr(), n,
-        d, eps, k, xs, _stream(particles.device))
-    if err != 0:
-        raise RuntimeError(f"Sinkhorn projection kernel launch failed: CUDA error {err}.")
+    _PROJECT(particles.device, particles.data_ptr(), log_a.data_ptr(), f.data_ptr(),
+             g.data_ptr(), out.data_ptr(), n, d, eps, k, xs)
     sinkhorn_tile.launches += 1
     return out

@@ -30,14 +30,14 @@ import ctypes
 
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 from particle_filters_tpu_torch.ops.resample_blocked import SUB, fine_chunks
 
 SG = 64  # sub-groups per super-group (block)
 Q = 3  # fine-chunk rows per sub-group
 ROWS = 128  # rows a super-group may stage
-_LIB = "pf_span_resample"
-_SOURCES = ("span_resample.cu",)
+_KERNEL = Kernel("X2 span kernel", "pf_span_resample", ("span_resample.cu",),
+                 "pf_span_resample", (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5)
 
 
 def span_rows(a0: torch.Tensor) -> torch.Tensor:
@@ -94,14 +94,6 @@ def _check_chunks(starts_f, diffs, chunk_base, a0) -> None:
         raise ValueError("all inputs must be contiguous.")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    fn = lib.pf_span_resample
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def span_compare_sum(starts_f, diffs, chunk_base, a0) -> torch.Tensor:
     """X2 on the fine-chunk arrays of :func:`resample_blocked.fine_chunks`
     (``extra`` ≥ ROWS rows) and ``a0``: the (n_subs·128, 1) values.
@@ -115,17 +107,10 @@ def span_compare_sum(starts_f, diffs, chunk_base, a0) -> torch.Tensor:
         return span_compare_sum_reference(starts_f, diffs, chunk_base, a0)
     if a0.device.type != "cuda":
         raise ValueError(f"unsupported device {a0.device}.")
-    lib = _library()
     n_subs = a0.shape[0]
     out = torch.empty((n_subs * SUB, 1), dtype=torch.float32, device=a0.device)
-    with torch.cuda.device(a0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pf_span_resample(
-            starts_f.data_ptr(), diffs.data_ptr(), chunk_base.data_ptr(), a0.data_ptr(),
-            out.data_ptr(), starts_f.shape[0], n_subs // SG, SG, Q, ROWS, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"X2 span kernel launch failed: CUDA error {err}.")
+    _KERNEL(a0.device, starts_f.data_ptr(), diffs.data_ptr(), chunk_base.data_ptr(),
+            a0.data_ptr(), out.data_ptr(), starts_f.shape[0], n_subs // SG, SG, Q, ROWS)
     span_compare_sum.launches += 1
     return out
 

@@ -35,10 +35,10 @@ from dataclasses import dataclass
 import torch
 
 from particle_filters_tpu_torch.core.block_cumsum import blocked_cumsum
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 
-_LIB = "pf_systematic_starts"
-_SOURCES = ("systematic_starts.cu",)
+_KERNEL = Kernel("systematic starts kernel", "pf_systematic_starts", ("systematic_starts.cu",),
+                 "pf_systematic_starts", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5)
 TILE = 8192  # weights a tile: kTile in csrc/systematic_starts.cu
 MAX_N = 1 << 24  # the f32 run ends' ceiling (resampling/exact.py takes larger)
 
@@ -142,30 +142,14 @@ def _check(weights: torch.Tensor, u: torch.Tensor, m: int) -> None:
         raise ValueError(f"need B·N < 2**31; got {rows} x {n}.")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    fn = lib.pf_systematic_starts
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch(weights: torch.Tensor, u: torch.Tensor, m: int, starts_form: bool) -> torch.Tensor:
     _check(weights, u, m)
     rows, n = weights.shape
     p = plan(rows, n)
-    lib = _library()
     out = weights.new_empty((rows * n,) if starts_form else (rows, n), dtype=torch.int32)
     scratch = weights.new_empty((p.scratch,), dtype=torch.float64)
-    err = lib.pf_systematic_starts(
-        weights.data_ptr(), u.data_ptr(), scratch.data_ptr(), out.data_ptr(), rows, n,
-        p.tiles, m, int(starts_form), _stream(weights.device))
-    if err != 0:
-        raise RuntimeError(f"systematic starts kernel launch failed: CUDA error {err}.")
+    _KERNEL(weights.device, weights.data_ptr(), u.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), rows, n, p.tiles, m, int(starts_form))
     systematic_starts.launches += p.passes
     return out
 

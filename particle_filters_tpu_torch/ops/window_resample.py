@@ -29,11 +29,11 @@ import ctypes
 
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import load_library
+from particle_filters_tpu_torch.ops._nvcc import Kernel
 from particle_filters_tpu_torch.ops.resample_blocked import SUB
 
-_LIB = "pf_window_resample"
-_SOURCES = ("window_resample.cu",)
+_KERNEL = Kernel("X1 window kernel", "pf_window_resample", ("window_resample.cu",),
+                 "pf_window_compare_sum", (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5)
 _MAX_POS = 1 << 24  # positions compare in f32, exact below 2**24
 _MAX_W = 6144  # a warp's two buffers of 2·W floats stay within 96 KB of shared memory
 
@@ -67,14 +67,6 @@ def _check(s_win: torch.Tensor, d_win: torch.Tensor) -> None:
         raise ValueError("s_win and d_win must be contiguous.")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_LIB, *_SOURCES)
-    fn = lib.pf_window_compare_sum
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def window_compare_sum(s_win: torch.Tensor, d_win: torch.Tensor, *,
                        sum_only: bool = False, transpose: bool = True) -> torch.Tensor:
     """X1 on (S, SG, W) f32 starts ``s_win`` and (S, SG, 1, W) f32 diffs
@@ -89,18 +81,11 @@ def window_compare_sum(s_win: torch.Tensor, d_win: torch.Tensor, *,
             s_win, d_win, sum_only=sum_only, transpose=transpose)
     if s_win.device.type != "cuda":
         raise ValueError(f"unsupported device {s_win.device}.")
-    lib = _library()
     n_super, sg, w = s_win.shape
     shape = (n_super, sg, SUB) if transpose else (n_super, SUB, sg)
     out = torch.empty(shape, dtype=torch.float32, device=s_win.device)
-    with torch.cuda.device(s_win.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pf_window_compare_sum(
-            s_win.data_ptr(), d_win.data_ptr(), out.data_ptr(), n_super * sg, sg, w,
-            int(sum_only), int(transpose), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"X1 window kernel launch failed: CUDA error {err}.")
+    _KERNEL(s_win.device, s_win.data_ptr(), d_win.data_ptr(), out.data_ptr(), n_super * sg,
+            sg, w, int(sum_only), int(transpose))
     window_compare_sum.launches += 1
     return out
 

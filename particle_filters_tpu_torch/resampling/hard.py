@@ -82,8 +82,6 @@ def _child_run_ends_u(
         exact = max(n, m) > EXACT_THRESHOLD
     if exact:
         return exact_child_run_ends_u(weights, m, u)
-    if weights.device.type == "cpu":
-        return systematic_run_ends(weights, m, u)
     u = torch.as_tensor(u, dtype=weights.dtype)
     if u.device != weights.device:
         u = u.to(weights.device)

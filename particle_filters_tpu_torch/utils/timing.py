@@ -9,9 +9,13 @@ the clock stops, where the JAX package calls ``jax.block_until_ready``.
 from __future__ import annotations
 
 import contextlib
+import json
+import math
+import os
 import subprocess
+import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -112,18 +116,62 @@ def timed(label: str = ""):
     print(f"[{label}] {1e3 * (time.perf_counter() - t0):.2f} ms")
 
 
-def kernel_records(fn):
-    """Run ``fn()`` once under ``torch.profiler`` (host and card) to a
-    ``torch.cuda.synchronize()``: ``[(device µs, count, name)]`` of the card's
-    kernel records only (an operator's record repeats its kernels' time), so
-    their sum is the card's busy time in that run. Empty where the profiler
-    saw no device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class DeviceProfile(NamedTuple):
+    """One profiled call: its wall ms to a sync, the card's busy ms in it,
+    and its device operations that took most time, [(ms, count, name)]."""
+
+    wall_ms: float
+    busy_ms: float
+    top: list
+
+
+def device_time(events, top: Optional[int] = 8):
+    """``(busy ms, top ops)`` of the events of a Chrome trace that
+    ``torch.profiler`` exported. Busy is the union of the card's kernel,
+    copy and set intervals: launches that overlap count once, and the
+    program's spans on the device timeline (``gpu_user_annotation``) not at
+    all. The ops sum each name's intervals: [(ms, count, name)], the
+    ``top`` largest (all where None)."""
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+    busy_us, end = 0.0, -math.inf
+    for ts, dur in sorted((float(e["ts"]), float(e["dur"])) for e in ops):
+        busy_us += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    by_name: Dict[str, List[float]] = {}
+    for e in ops:
+        row = by_name.setdefault(e["name"], [0.0, 0])
+        row[0] += float(e["dur"]) * 1e-3
+        row[1] += 1
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
+    return busy_us * 1e-3, rows[:top]
+
+
+def profile_device(fn, top: Optional[int] = 8) -> DeviceProfile:
+    """Run ``fn()`` once under ``torch.profiler`` (host and, where there is
+    one, the card) to a sync, and reduce its trace by :func:`device_time`.
+    Busy 0 and no ops where the profiler saw no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
-    return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return DeviceProfile(wall_ms, *device_time(events, top))
 
 
 _NO_SPAN = contextlib.nullcontext()

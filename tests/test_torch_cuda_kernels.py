@@ -125,6 +125,23 @@ def test_x3_kernel_equals_plain(cuda_device):
     assert add_one.launches == before + 1
 
 
+def test_kernel_seam_on_the_card(cuda_device):
+    """The kernels' one call seam (``ops/_nvcc.py::Kernel``): a launch in
+    a side stream's scope runs there, and an error code from the C entry
+    raises naming the kernel."""
+    from particle_filters_tpu_torch.ops import launch_probe as x3
+
+    x = torch.randn(x3.TILE, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = x3.add_one(x)
+    side.synchronize()
+    assert torch.equal(out, x + 1.0)
+    with pytest.raises(RuntimeError, match=r"X3 launch probe launch failed: CUDA error 1\."):
+        x3._KERNEL(cuda_device, x.data_ptr(), out.data_ptr(), 0)  # n = 0: invalid value
+
+
 @pytest.mark.parametrize("n", PROBE_SIZES)
 def test_x1_kernel_matches_plain(cuda_device, n):
     import chip_smoke

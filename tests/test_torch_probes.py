@@ -9,11 +9,17 @@ particles, the bar of ``benchmarks/exp_resample_dma.py:175``; ranks, ``a0``
 and windows are held exactly. The CUDA kernels' premise is tested here too:
 the windows both probes get are sorted, and on them a search and a scan give
 what the TPU kernels give, while on shuffled windows they do not. So does
-the build key of the CUDA libraries, which covers the shared headers.
+the build key of the CUDA libraries, which covers the shared headers, and
+their one call seam (``ops/_nvcc.py::Kernel``): the signature set once, the
+stream last, an error that names its kernel, and every wrapper's signature
+equal to its C entry point's.
 """
 
+import contextlib
+import ctypes
 import functools
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +39,15 @@ from particle_filters_tpu_torch.benchmarks import exp_kernel_var as tkv
 from particle_filters_tpu_torch.benchmarks import exp_resample_dma as trd
 from particle_filters_tpu_torch.benchmarks import profile_small_n as tsn
 from particle_filters_tpu_torch.interop import params_from_jax, state_from_jax
-from particle_filters_tpu_torch.ops import _nvcc
+from particle_filters_tpu_torch.ops import (
+    _nvcc,
+    launch_probe,
+    resample,
+    sinkhorn_tile,
+    span_resample,
+    systematic_starts,
+    window_resample,
+)
 from particle_filters_tpu_torch.ops.fused_pf import SVModel
 from particle_filters_tpu_torch.ops.launch_probe import add_one, add_one_reference
 from particle_filters_tpu_torch.ops.resample import resample_by_starts_reference
@@ -468,6 +482,82 @@ def test_build_key_covers_headers(tmp_path, monkeypatch):
     assert _nvcc.build_key("a.cu") == key
     (tmp_path / "a.cu").write_text('#include "shared.cuh"\n// edited\n')
     assert _nvcc.build_key("a.cu") != key
+
+
+class _Symbol:
+    """Stands in for a library's entry point: records each call and each
+    assignment of its signature, and returns ``err``."""
+
+    def __init__(self):
+        self.calls, self.signatures, self.err = [], [], 0
+
+    @property
+    def argtypes(self):
+        return self.signatures[-1]
+
+    @argtypes.setter
+    def argtypes(self, types):
+        self.signatures.append(types)
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.err
+
+
+class _Lib:
+    def __init__(self, symbol):
+        self.pf_probe = symbol
+
+
+def test_kernel_seam_sets_the_signature_once_and_names_a_failed_kernel(monkeypatch):
+    """``_nvcc.Kernel``: each launch enters the device and passes its stream
+    last; the entry point's signature is set on the first launch only; a
+    non-zero CUDA error raises, naming the kernel."""
+    symbol = _Symbol()
+    lib = _Lib(symbol)
+    entered = []
+
+    @contextlib.contextmanager
+    def on_device(device):
+        entered.append(device)
+        yield 77
+
+    monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: lib)
+    monkeypatch.setattr(_nvcc, "on_device", on_device)
+    kernel = _nvcc.Kernel("probe kernel", "pf_probe", ("probe.cu",), "pf_probe",
+                          (ctypes.c_void_p, ctypes.c_int))
+    kernel("cuda:0", 10, 1)
+    kernel("cuda:1", 20, 2)
+    symbol.err = 700
+    with pytest.raises(RuntimeError, match="probe kernel launch failed: CUDA error 700"):
+        kernel("cuda:0", 30, 3)
+    assert symbol.signatures == [[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]]
+    assert symbol.restype is ctypes.c_int
+    assert symbol.calls == [(10, 1, 77), (20, 2, 77), (30, 3, 77)]
+    assert entered == ["cuda:0", "cuda:1", "cuda:0"]
+
+
+def _ctype(param: str):
+    """The ctypes type of one C parameter: a pointer, an int or a float."""
+    if "*" in param:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+
+
+@pytest.mark.parametrize("kernel", [
+    pytest.param(resample._KERNEL, id="B2"), pytest.param(systematic_starts._KERNEL, id="S"),
+    pytest.param(window_resample._KERNEL, id="X1"), pytest.param(span_resample._KERNEL, id="X2"),
+    pytest.param(launch_probe._KERNEL, id="X3"), pytest.param(sinkhorn_tile._DUAL, id="OT dual"),
+    pytest.param(sinkhorn_tile._PROJECT, id="OT projection")])
+def test_kernel_signature_matches_its_c_entry(kernel):
+    """Each wrapper's signature is its C entry point's, parameter by
+    parameter, the stream last: ctypes would pass a mistyped argument
+    without complaint."""
+    src = "".join((_nvcc.CSRC / s).read_text() for s in kernel.sources)
+    params = re.search(r'extern "C" int %s\(([^)]*)\)' % kernel.symbol, src).group(1)
+    *params, stream = (p.strip() for p in params.split(","))
+    assert stream == "void* stream"
+    assert list(kernel.argtypes) == [_ctype(p) for p in params]
 
 
 # --- X3 ---------------------------------------------------------------------

@@ -24,6 +24,7 @@ The kernels themselves are held against the plain version on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from particle_filters_tpu_torch.models.dpf import DPF_OT
+from particle_filters_tpu_torch.ops import _nvcc
 from particle_filters_tpu_torch.ops import sinkhorn_tile as st
 from particle_filters_tpu_torch.resampling import ot
 
@@ -153,8 +155,8 @@ class _Refuse:
 @pytest.fixture
 def stub(monkeypatch):
     lib = _Stub()
-    monkeypatch.setattr(st, "load_library", lambda name, *sources: lib)
-    monkeypatch.setattr(st, "_stream", lambda device: 0)
+    monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: lib)
+    monkeypatch.setattr(_nvcc, "on_device", lambda device: contextlib.nullcontext(0))
     return lib
 
 
@@ -163,7 +165,7 @@ def refuse(monkeypatch):
     def load(name, *sources):
         raise AssertionError("the kernels were loaded")
 
-    monkeypatch.setattr(st, "load_library", load)
+    monkeypatch.setattr(_nvcc, "load_library", load)
 
 
 def test_cpu_calls_never_load_the_kernels(refuse):
@@ -230,7 +232,7 @@ def test_gradient_reaches_the_particles_through_the_torch_ops(monkeypatch):
 
     on_cpu = grad_of_a_functional()
     monkeypatch.setattr(ot, "_on_card", lambda t: True)
-    monkeypatch.setattr(st, "load_library", lambda name, *sources: _Refuse())
+    monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: _Refuse())
     on_card = grad_of_a_functional()
     assert torch.isfinite(on_card).all() and float(on_card.abs().max()) > 0
     assert torch.equal(on_card, on_cpu)
@@ -245,7 +247,7 @@ def test_vmapped_sweep_keeps_the_torch_ops_and_matches_each_call(monkeypatch):
     clouds = torch.stack([x, x + 0.5])
     each_cloud = [ot.sinkhorn_ot_resample(c, w, n_iters=15)[0] for c in clouds]
     monkeypatch.setattr(ot, "_on_card", lambda t: True)
-    monkeypatch.setattr(st, "load_library", lambda name, *sources: _Refuse())
+    monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: _Refuse())
     eps = torch.tensor([e for e, _ in grid])
     damp = torch.tensor([d for _, d in grid])
 

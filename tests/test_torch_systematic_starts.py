@@ -9,11 +9,14 @@ The kernel itself is held against its plain version on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from particle_filters_tpu_torch.core.block_cumsum import blocked_cumsum
+from particle_filters_tpu_torch.ops import _nvcc
 from particle_filters_tpu_torch.ops import systematic_starts as ss
 from particle_filters_tpu_torch.ops.fused_pf import FusedSIRFilter, SVModel
 from particle_filters_tpu_torch.resampling import hard
@@ -50,11 +53,17 @@ class _Stub:
         self.pf_systematic_starts = pf_systematic_starts  # takes argtypes, as ctypes' does
 
 
+def _stub_seam(monkeypatch, lib):
+    """The kernels' one call seam (``ops/_nvcc.py``) loads ``lib`` and
+    launches on stream 0 without entering a device."""
+    monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: lib)
+    monkeypatch.setattr(_nvcc, "on_device", lambda device: contextlib.nullcontext(0))
+
+
 @pytest.fixture
 def stub(monkeypatch):
     lib = _Stub()
-    monkeypatch.setattr(ss, "load_library", lambda name, *sources: lib)
-    monkeypatch.setattr(ss, "_stream", lambda device: 0)
+    _stub_seam(monkeypatch, lib)
     return lib
 
 
@@ -133,8 +142,7 @@ def test_cpu_tensors_take_the_plain_chain(stub):
 def test_cuda_tensor_never_falls_back(monkeypatch):
     """A launch error raises: the plain chain never stands in on the card."""
     lib = _Stub(err=700)
-    monkeypatch.setattr(ss, "load_library", lambda name, *sources: lib)
-    monkeypatch.setattr(ss, "_stream", lambda device: 0)
+    _stub_seam(monkeypatch, lib)
     monkeypatch.setattr(ss, "run_ends_reference", lambda *a: pytest.fail("fell back"))
     monkeypatch.setattr(ss, "starts_reference", lambda *a: pytest.fail("fell back"))
     w, u = _cuda_like(_weights(2, 300)), _cuda_like(_u(2))

@@ -155,3 +155,39 @@ def _tensors(tree) -> list:
     elif not isinstance(tree, (tuple, list)):
         return []
     return [t for x in tree for t in _tensors(x)]
+
+
+def _event(cat, name, ts, dur):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+
+def test_device_time_is_the_union_of_device_intervals():
+    """``timing.device_time``: overlapping kernels count once (a launch that
+    starts while the one before ends), copies and sets count, and the
+    program's spans on the device timeline (``gpu_user_annotation``) and
+    host events count zero."""
+    events = [
+        _event("kernel", "k_a", 0.0, 10.0),
+        _event("kernel", "k_b", 5.0, 10.0),  # overlaps k_a by 5 µs
+        _event("kernel", "k_a", 40.0, 4.0),
+        _event("gpu_memcpy", "Memcpy DtoH", 20.0, 2.0),
+        _event("gpu_memset", "Memset", 21.0, 2.0),  # overlaps the copy by 1 µs
+        _event("gpu_user_annotation", "pf.sir.b1", 0.0, 100.0),
+        _event("user_annotation", "pf.sir.run", 0.0, 100.0),
+        _event("cpu_op", "aten::add", 0.0, 50.0),
+        {"ph": "f", "cat": "kernel", "name": "k_a", "ts": 0.0},  # a flow event
+    ]
+    busy_ms, ops = timing.device_time(events)
+    assert busy_ms == pytest.approx((15.0 + 3.0 + 4.0) * 1e-3)
+    assert ops == [(pytest.approx(0.014), 2, "k_a"), (pytest.approx(0.010), 1, "k_b"),
+                   (pytest.approx(0.002), 1, "Memset"), (pytest.approx(0.002), 1, "Memcpy DtoH")]
+    assert timing.device_time(events, top=1)[1] == ops[:1]
+    assert timing.device_time([_event("gpu_user_annotation", "pf.ot.run", 0.0, 9.0)]) == (0.0, [])
+
+
+def test_profile_device_on_the_cpu():
+    """The whole reader on a CPU run with spans: its wall time, and no
+    device time where the profiler saw none (the spans are not work)."""
+    run, _ = _sir(0.5)
+    prof = timing.profile_device(run)
+    assert prof.wall_ms > 0 and prof.busy_ms == 0.0 and prof.top == []
