@@ -909,6 +909,7 @@ def run_snlg_path(device, card):
         _check(r["b2_launches"] == r["resample_steps"] > 0,
                f"SNLG {tag}: B2 launched {r['b2_launches']} times, once a step with a "
                f"resample ({r['resample_steps']})")
+    _operator_applies("SNLG ledh200", res["ledh200"], snlg.N_LAMBDA, snlg.T)
     print(f"SNLG path: B2 launched {launches} times in the flows' timed runs")
     return {"B2": launches}
 
@@ -921,6 +922,14 @@ def _flow_launches(label, r):
            f"({r['resample_steps']})")
 
 
+def _operator_applies(label, r, lambda_steps, steps):
+    """LEDH applies its flow operator Aⁱ twice a λ-step of every step."""
+    want = 2 * lambda_steps * steps
+    _check(r["operator_applies"] == want,
+           f"{label}: the flow operator applied {r['operator_applies']} times, twice a "
+           f"λ-step ({want})")
+
+
 def run_skewt_path(device, card):
     """The skew-t column at full width (d = 144, T = 10, 100 trials), checked
     against the JAX package on the same data; B2's count is set to 0 just
@@ -930,6 +939,7 @@ def run_skewt_path(device, card):
     _gates("skew-t", skewt.gates(res))
     for tag, _, _ in skewt.FLOWS:
         _flow_launches(f"skew-t {tag}", res[tag])
+    _operator_applies("skew-t ledh200", res["ledh200"], skewt.N_LAMBDA, skewt.T)
     launches = sum(res[tag]["b2_launches"] for tag, _, _ in skewt.FLOWS)
     print(f"skew-t path: B2 launched {launches} times in the flows' timed runs; LEDH-200 "
           f"peak {res['ledh200']['peak_mib']:.0f} MiB allocated (all 100 trials in one "

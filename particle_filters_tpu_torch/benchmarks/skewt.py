@@ -152,7 +152,9 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
     ``{tag: {...}}`` with ``total_s``, ``ms_per_trial_step`` and ``mse`` for
     every filter, and for the flows ``ess`` (the mean post-resample ESS),
     ``resampled`` (trial-steps), ``resample_steps`` (steps with any),
-    ``b2_launches``, ``finite`` (the whole history) and, on the card,
+    ``b2_launches``, ``finite`` (the whole history), for LEDH
+    ``operator_applies`` (``LEDHFlowPF.operator_applies`` over the timed
+    run) and, on the card,
     ``peak_mib`` (``torch.cuda.max_memory_allocated`` over the timed run);
     for the tags in ``profile`` a ``PROFILE_STEPS``-step run under the
     profiler: its wall ms, the card's busy ms (the union of its device
@@ -183,6 +185,8 @@ def run_column(device="cuda", data=None, flows=FLOWS, profile=()):
             ess=hist["ess"].mean().item(), resampled=int(hist["resampled"].sum()),
             resample_steps=int(hist["resampled"].any(dim=0).sum()), b2_launches=launches,
             finite=all(bool(torch.isfinite(v.float()).all()) for v in hist.values()))
+        if kind == "ledh":
+            out[tag]["operator_applies"] = LEDHFlowPF.operator_applies
         if device.type == "cuda":
             out[tag]["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
         if tag in profile:
@@ -216,6 +220,8 @@ def print_column(res, card: str) -> None:
         if "b2_launches" in r:
             extra = (f", ESS {r['ess']:.3f}, resampled {r['resampled']} trial-steps "
                      f"({r['resample_steps']} steps with any), B2 launches {r['b2_launches']}")
+            if "operator_applies" in r:
+                extra += f", operator applies {r['operator_applies']}"
             if "peak_mib" in r:
                 extra += f", peak {r['peak_mib']:.0f} MiB"
         print(f"skew-t {tag:9s}: {r['total_s']:.4f} s, {r['ms_per_trial_step']:.4f} "

@@ -45,6 +45,7 @@ from particle_filters_tpu_torch.simulators.sensor_network_lg import make_grid_co
 from particle_filters_tpu_torch.utils.timing import card_line, profile_device, sync
 
 D, T, TRIALS, SZ, AL = 64, 50, 100, 2.0, 0.9
+N_LAMBDA = 4  # the flows' λ-steps
 # The JAX package's MSEs at this column (benchmarks/results.json, results.snlg_d64).
 JAX_MSE = {"kf": 0.49578049778938293, "kf_sz1": 0.19176240265369415,
            "ukf": 0.49578049778938293, "edh200": 0.6473208069801331,
@@ -121,10 +122,10 @@ def make_flow(kind: str, n_particles: int, Sigma, device, group=None):
             lambda xn, xo: mvn_logpdf_chol(xn, AL * xo, LQ),
             lambda z, x: mvn_logpdf_chol(z, x, LR), R)
     if kind == "edh":
-        filt = EDHFlowPF(*args, EDHConfig(n_particles=n_particles, n_lambda_steps=4),
+        filt = EDHFlowPF(*args, EDHConfig(n_particles=n_particles, n_lambda_steps=N_LAMBDA),
                          device=device, group=group)
     else:
-        filt = LEDHFlowPF(*args, LEDHConfig(n_particles=n_particles, n_lambda_steps=4,
+        filt = LEDHFlowPF(*args, LEDHConfig(n_particles=n_particles, n_lambda_steps=N_LAMBDA,
                                             resample_ess_ratio=0.5), device=device,
                           group=group)
 
@@ -137,12 +138,13 @@ def make_flow(kind: str, n_particles: int, Sigma, device, group=None):
 def run_flow(filt, noise, Z, Sigma, generator):
     """All trials of Z (B, T, d) through ``filt.run_trials`` from
     N(0, Σ) clouds: (history, B2 launches). B2's count is set to 0 just
-    before ``run_trials`` and read just after."""
+    before ``run_trials`` and read just after; so is
+    ``LEDHFlowPF.operator_applies``, which the caller reads."""
     d, B = Sigma.shape[0], Z.shape[0]
     zeros = torch.zeros(d, device=Z.device)
     states = stack_states([filt.init_from_gaussian(generator, zeros, Sigma) for _ in range(B)])
     tracks = stack_states([filt.tracker.init(zeros, Sigma)] * B)
-    resample_by_starts.launches = 0
+    resample_by_starts.launches = LEDHFlowPF.operator_applies = 0
     _, _, hist = filt.run_trials(generator, states, tracks, Z, process_noise_sampler=noise)
     return hist, resample_by_starts.launches
 
@@ -162,10 +164,11 @@ def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
     """The column at the given sizes: ``{tag: {...}}`` with ``total_s``,
     ``ms_per_trial_step`` and ``mse`` for every filter, ``resampled`` (the
     trial-steps that resampled), ``resample_steps`` (steps with any) and
-    ``b2_launches`` for the flows, and for the tags in ``profile`` a
-    ``PROFILE_STEPS``-step run under the profiler (on the card): its wall
-    ms, the card's busy ms (the union of its device intervals) and
-    ``top_ops``."""
+    ``b2_launches`` for the flows, ``operator_applies`` for LEDH
+    (``LEDHFlowPF.operator_applies`` over the timed run), and for the tags
+    in ``profile`` a ``PROFILE_STEPS``-step run under the profiler (on the
+    card): its wall ms, the card's busy ms (the union of its device
+    intervals) and ``top_ops``."""
     device = torch.device(device)
     Sigma_np, (X2, Z2), (X1, Z1) = make_data(trials, steps, d)
     Sigma = torch.as_tensor(Sigma_np, device=device)
@@ -193,6 +196,8 @@ def run_column(device="cuda", trials: int = TRIALS, steps: int = T, d: int = D,
         out[tag].update(resampled=int(hist["resampled"].sum()),
                         resample_steps=int(hist["resampled"].any(dim=0).sum()),
                         b2_launches=launches)
+        if kind == "ledh":
+            out[tag]["operator_applies"] = LEDHFlowPF.operator_applies
         if tag in profile:
             prof = profile_device(
                 lambda: run_flow(filt, noise, Z2[:, :PROFILE_STEPS], Sigma, gen))
@@ -215,6 +220,8 @@ def print_column(res, card: str, trials: int = TRIALS, steps: int = T) -> None:
         if "b2_launches" in r:
             extra = (f", resampled {r['resampled']} of {trials * steps} trial-steps "
                      f"({r['resample_steps']} steps with any), B2 launches {r['b2_launches']}")
+        if "operator_applies" in r:
+            extra += f", operator applies {r['operator_applies']}"
         print(f"SNLG {tag:9s}: {r['total_s']:.4f} s for {trials} trials, "
               f"{r['ms_per_trial_step']:.4f} ms/trial-step, MSE {r['mse']:.5f} "
               f"(JAX {JAX_MSE[tag]:.5f}){extra}  [{card}]")

@@ -4,11 +4,19 @@ port of ``particle_filters_tpu/models/ledh_particle_filter.py``).
 Per-particle linearization Hⁱ = Jh(ηⁱ), per-particle flow matrices Aⁱ, bⁱ,
 Euler migration of ηⁱ and of the auxiliary path η̄ⁱ, the flow log-det θⁱ,
 and the invertible weights w ∝ w·θ·p(z|x)p(x|x₋)/p(η₀|x₋). The flow is the
-JAX package's Woodbury form (:meth:`LEDHFlowPF._per_particle_flow`): its
+JAX package's Woodbury form (:meth:`LEDHFlowPF._per_particle_factors`): its
 two factorizations are one single-shot Cholesky of a stacked (2, nx, nx)
 pair per particle — under the particle ``torch.func.vmap`` one batched
 ``cholesky_ex`` over (N, 2, nx, nx) — and the log-dets come from their
-diagonals. The steps, runs and batched trials are those of
+diagonals. Aⁱ is applied as an operator and never formed
+(:func:`_apply_flow_matrix`, outside the particle vmap): Aⁱ only ever
+multiplies vectors, so a λ-step applies it twice, to four vectors and then
+to one, with products and triangular solves nx²·k in work a particle where
+the formed matrix took nx³. Where the Jacobian is the same for every
+particle, the vmap computes W and the factors once, and one factor serves
+all the particles' rows; there Aⁱ formed once a trial would take less
+card work once n·k > nx.
+The steps, runs and batched trials are those of
 :class:`~particle_filters_tpu_torch.models.edh_particle_filter._FlowPF`,
 with a process group too (its condition number then the max over the
 ranks' first particles, as the JAX package's ``pmax``).
@@ -17,6 +25,7 @@ ranks' first particles, as the JAX package's ``pmax``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -29,7 +38,6 @@ from particle_filters_tpu_torch.core.linalg import (
     cond_spd,
     cond_spd_power,
     symmetrize,
-    tri_solve_lower,
 )
 from particle_filters_tpu_torch.models.edh_particle_filter import _FlowPF, _lambda_grid
 
@@ -64,12 +72,33 @@ def _check_beta_schedule(beta: np.ndarray, n_steps: int) -> None:
                          "the weight correction assumes full tempering to λ=1.")
 
 
+def _apply_flow_matrix(W, LK, LKt, Pt, V):
+    """Aⁱ applied to every particle's rows, V (n, k, nx) → (n, k, nx):
+    Aⁱv = −½ P (Wv − W K⁻¹ Wv) with K = LK LKᵀ (LKt = LKᵀ), by two
+    products with W and two triangular solves with LK, each k wide. W and
+    K are symmetric, so the rows are V W, then its product with K⁻¹ from
+    the right, and so on; Pt = −½Pᵀ, shared by a trial's particles,
+    multiplies all n·k rows in one product. W and LK are (n, nx, nx), one
+    a particle, or (nx, nx) where the Jacobian is the same for every
+    particle: then one W and one LK serve all n·k rows.
+    ``LEDHFlowPF.operator_applies`` counts the applies (two a λ-step),
+    across calls."""
+    LEDHFlowPF.operator_applies += 1
+    rows = V.reshape(-1, V.shape[-1]) if W.dim() == 2 else V
+    t = rows @ W
+    y = torch.linalg.solve_triangular(LKt, t, upper=True, left=False)  # t LK⁻ᵀ
+    r = torch.linalg.solve_triangular(LK, y, upper=False, left=False)  # t K⁻¹
+    return ((t - r @ W) @ Pt).reshape(V.shape)
+
+
 class LEDHFlowPF(_FlowPF):
     """Local EDH flow PF (per-particle linearization). The constructor is
     :class:`~particle_filters_tpu_torch.models.edh_particle_filter.EDHFlowPF`'s;
     ``step``, ``run`` and ``run_trials`` also take ``beta_schedule``, an
     optional (n_lambda_steps + 1,) temper schedule from 0 to 1 that replaces
     the uniform λ grid (flow at β_k with Euler increments β_{k+1} − β_k)."""
+
+    operator_applies = 0  # see _apply_flow_matrix
 
     def __init__(self, tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
                  config: Optional[LEDHConfig] = None, device="cuda", group=None,
@@ -79,14 +108,15 @@ class LEDHFlowPF(_FlowPF):
                          neighbor_radius)
         self.R_inv = chol_solve(self.LR, torch.eye(self.R.shape[0], device=self.device))
 
-    def _per_particle_flow(self, lam, dlam, one_minus_c, eta_i, etabar_i, eta0_i, P, P_inv,
-                           z, I):
-        """Aⁱ, bⁱ, both migrations and the log-det increment for ONE particle.
+    def _per_particle_factors(self, lam, one_minus_c, eta_i, P, P_inv, z, I):
+        """ONE particle's Wⁱ, the Cholesky factor LK of Kⁱ, uⁱ and half the
+        log-det increment.
 
         With Wⁱ = HⁱᵀR⁻¹Hⁱ and Kⁱ = P⁻¹/λ + Wⁱ (Woodbury):
-        HⁱᵀSⁱ⁻¹Hⁱ = Gⁱ = Wⁱ − Wⁱ Kⁱ⁻¹ Wⁱ and Aⁱ = −½ P Gⁱ, and
-        det(I + εAⁱ) = det(Kⁱ − (ε/2λ)Wⁱ)/det(Kⁱ), both SPD (ε ≤ λ on the
-        grid): the log-dets come from the Cholesky diagonals."""
+        HⁱᵀSⁱ⁻¹Hⁱ = Wⁱ − Wⁱ Kⁱ⁻¹ Wⁱ, Aⁱ = −½ P (Wⁱ − Wⁱ Kⁱ⁻¹ Wⁱ) and
+        uⁱ = P HⁱᵀR⁻¹(z − eⁱ). det(I + εAⁱ) = det(Kⁱ − (ε/2λ)Wⁱ)/det(Kⁱ),
+        both SPD (ε ≤ λ on the grid): the log-dets come from the Cholesky
+        diagonals."""
         Hi = self.Jh(eta_i)
         ei = self.h(eta_i) - Hi @ eta_i
         W = symmetrize(Hi.T @ (self.R_inv @ Hi))  # (nx, nx) PSD
@@ -97,20 +127,33 @@ class LEDHFlowPF(_FlowPF):
             P_inv / lam + W + jit_eye,
             P_inv / lam + one_minus_c * W + jit_eye,
         ]))
-        LK, L_num = Ls[0], Ls[1]
-        # W K⁻¹ W = YᵀY with Y = LK⁻¹ W: one forward substitution.
-        Y = tri_solve_lower(LK, W)
-        G = symmetrize(W - Y.T @ Y)  # HᵀS⁻¹H
-        Ai = -0.5 * P @ G
-        Rin_innov = self.R_inv @ (z - ei)
-        bi = (I + 2.0 * lam * Ai) @ (
-            (I + lam * Ai) @ (P @ (Hi.T @ Rin_innov)) + Ai @ eta0_i
-        )
-        etabar_new = etabar_i + dlam * (Ai @ etabar_i + bi)
-        eta_new = eta_i + dlam * (Ai @ eta_i + bi)
-        logdet = 2.0 * (torch.sum(torch.log(torch.diagonal(L_num)))
-                        - torch.sum(torch.log(torch.diagonal(LK))))
-        return eta_new, etabar_new, logdet
+        # Under vmap LK is a strided slice of the pair; one copy makes it
+        # contiguous, so that its four solves read it in place.
+        LK, L_num = Ls[0].contiguous(), Ls[1]
+        u = P @ (Hi.T @ (self.R_inv @ (z - ei)))
+        half_logdet = (torch.sum(torch.log(torch.diagonal(L_num)))
+                       - torch.sum(torch.log(torch.diagonal(LK))))
+        return W, LK, u, half_logdet
+
+    def _lambda_step(self, lam, dlam, one_minus_c, eta, etabar, eta0, P, P_inv, z, I):
+        """One λ-step of all n particles (eta, etabar, eta0 (n, nx)): the
+        migrations and the log-det increments. Aⁱ is applied by
+        :func:`_apply_flow_matrix` and never formed: once to the four
+        vectors u, η₀, η̄, η, once to s = (I + λAⁱ)u + Aⁱη₀, and
+        bⁱ = (I + 2λAⁱ)s."""
+        W, LK, u, half_logdets = torch.func.vmap(
+            self._per_particle_factors, in_dims=(None, None, 0, None, None, None, None)
+        )(lam, one_minus_c, eta, P, P_inv, z, I)
+        if W.stride(0) == 0 and LK.stride(0) == 0:
+            # The vmap expands what no particle changes: the Jacobian is
+            # the same for every particle, and so are W and LK.
+            W, LK = W[0], LK[0]
+        apply = functools.partial(_apply_flow_matrix, W, LK, LK.mT, -0.5 * P.mT)
+        Au, Aeta0, Aetabar, Aeta = apply(torch.stack([u, eta0, etabar, eta], dim=1)).unbind(1)
+        s = torch.add(u, Au, alpha=lam) + Aeta0
+        b = torch.add(s, apply(s[:, None])[:, 0], alpha=2.0 * lam)
+        return (torch.add(eta, Aeta + b, alpha=dlam), torch.add(etabar, Aetabar + b, alpha=dlam),
+                2.0 * half_logdets)
 
     def _cond_first_particle(self, lam, eta_0, P):
         """cond(S⁰) for particle 0 only, as the reference records it."""
@@ -136,16 +179,13 @@ class LEDHFlowPF(_FlowPF):
         n, nx = eta0.shape
         I = torch.eye(nx, device=eta0.device)
         P_inv = chol_solve(chol_with_jitter(P, initial=1e-9), I)
-        flow = torch.func.vmap(
-            self._per_particle_flow, in_dims=(None, None, None, 0, 0, 0, None, None, None, None)
-        )
         eta, etabar, theta_log, conds = eta0, eta0, torch.zeros(n, device=eta0.device), []
         for lam, dlam in self._grid(beta_schedule):
             # c = ε/(2λ) and 1 − c in f32, as the JAX package computes them
             c = np.float32(dlam) / (np.float32(2.0) * np.float32(lam))
             one_minus_c = float(np.float32(1.0) - c)
             conds.append(self._cond_first_particle(lam, eta[0], P))
-            eta, etabar, logdets = flow(lam, dlam, one_minus_c, eta, etabar, eta0, P, P_inv,
-                                        z, I)
+            eta, etabar, logdets = self._lambda_step(lam, dlam, one_minus_c, eta, etabar, eta0,
+                                                     P, P_inv, z, I)
             theta_log = theta_log + logdets
         return eta, theta_log, torch.stack(conds)
