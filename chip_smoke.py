@@ -22,7 +22,10 @@ u shown to move more; the starts sorted and bounded; two calls bit-equal);
 the Sinkhorn tile kernels (the dual loop and the projection) against their
 plain version at N x d from 1 x 1 to 20000 x 3 on a spread cloud and on a
 point mass with a particle 8 sigma out (potentials, dual changes and new
-particles within stated tolerances, launches by the plan).
+particles within stated tolerances, launches by the plan); the Sinkhorn VJP
+kernels against their plain version from one saved history at N = 8192,
+d = 1 and 3 (the gradients for the cloud and log a within 1e-4 of the
+largest entry, launches by the plan).
 Then:
 
 - the main path: the SIR filter on the 1-D stochastic-volatility model
@@ -86,7 +89,9 @@ Then:
 - the OT path (``benchmarks.ot_large``): dense (on the card, the Sinkhorn
   tile kernels) against blockwise Sinkhorn at N = 4096, and blockwise at
   N = 4096, 16384 and 65536 with peak memory; then ``DPF_OT.run_filter`` at
-  N = 8192 for 5 steps, every resample through the tile kernels (counted);
+  N = 8192 for 5 steps, every resample through the tile kernels (counted),
+  and ``torch.autograd.grad`` of its log-evidence in (alpha, sigma, beta),
+  every backward resample through the VJP kernels (counted, from zero);
 - the run_chunked path: ParticleFilter on the SV model at N = 2^20 run in
   pieces, interrupted and resumed from its checkpoint, bit-equal to run;
 - determinism: two FusedSIRFilter runs and two ParticleFilter runs (with
@@ -266,6 +271,13 @@ OT_TILE_EPS, OT_TILE_DAMPING, OT_TILE_ITERS = 0.1, 0.5, 50
 # the input cloud's std (the output cloud of a point mass has almost none).
 OT_TILE_POT_TOL, OT_TILE_PARTICLE_TOL = 1e-4, 1e-4
 DPF_OT_N, DPF_OT_T = 8192, 5  # DPF_OT.run_filter through the tile kernels
+# The VJP kernels against their plain version from one saved history (the
+# spread cloud, a normal cotangent), as the card tests hold them: the
+# gradients' largest gap over their largest entry. ex2.approx against
+# torch.exp2 and sums in another order over 202 passes (a bfloat16 backward,
+# ~4e-3 a rounding, is far outside).
+OT_VJP_SHAPES = ((8192, 1), (8192, 3))
+OT_VJP_TOL = 1e-4
 CHUNK_T, CHUNK_SIZE, CHUNK_STOP = 30, 10, 2  # run_chunked at N = 2^20: interrupt after 2
 # The north-star phase: the scaling curve's timed runs of each length after
 # the warm-up (the module takes 4, as the JAX script does).
@@ -1527,27 +1539,82 @@ def check_sinkhorn_tile(gen, n, d, device) -> dict:
     return worst
 
 
-def run_dpf_ot_path(device, card) -> int:
-    """``DPF_OT.run_filter`` on the SV model at N = ``DPF_OT_N`` for
-    ``DPF_OT_T`` steps: every resample through the tile kernels (the counter
-    raised by the plan a step), finite particles. Returns the launches."""
+def _vjp_problem(gen, n, d, device):
+    """The spread cloud of :func:`_ot_tile_clouds`, a normal cotangent of the
+    new particles, and the history the forward saves for the VJP with the
+    projection's output."""
+    x, log_a, log_b = _ot_tile_clouds(gen, n, d, device)[0]
+    cot = torch.randn((n, d), generator=gen, device=device)
+    kw = dict(epsilon=OT_TILE_EPS, n_iters=OT_TILE_ITERS, damping=OT_TILE_DAMPING)
+    saved = (log_a.new_empty((OT_TILE_ITERS + 1, 2, n)), log_a.new_empty((OT_TILE_ITERS, 2, n)))
+    f, g, _ = ot_tile.sinkhorn_tile(x, log_a, log_b, saved=saved, **kw)
+    new_x = ot_tile.tile_projection(x, log_a, f, g, epsilon=OT_TILE_EPS)
+    return x, log_a, log_b, saved, new_x, cot
+
+
+def check_sinkhorn_vjp(gen, n, d, device) -> float:
+    """The VJP kernels against their plain version from one saved history:
+    the gradients for the cloud and log a within ``OT_VJP_TOL`` of their
+    largest entry, finite, and ``sinkhorn_tile.launches`` raised by the VJP's
+    plan. Returns the worse gap."""
+    x, log_a, log_b, saved, new_x, cot = _vjp_problem(gen, n, d, device)
+    kw = dict(epsilon=OT_TILE_EPS, damping=OT_TILE_DAMPING)
+    before = ot_tile.sinkhorn_tile.launches
+    gx, gla = ot_tile.sinkhorn_tile_vjp(x, log_a, log_b, saved, new_x, cot, **kw)
+    torch.cuda.synchronize()
+    launched = ot_tile.sinkhorn_tile.launches - before
+    _check(launched == ot_tile.vjp_launches(OT_TILE_ITERS),
+           f"Sinkhorn VJP at {n} x {d}: {launched} launches, the plan's "
+           f"{ot_tile.vjp_launches(OT_TILE_ITERS)}")
+    px, pla = ot_tile.sinkhorn_tile_vjp_reference(x, log_a, log_b, saved, new_x, cot,
+                                                  tile=256, **kw)
+    _check(bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gla).all()),
+           f"Sinkhorn VJP at {n} x {d}: finite gradients")
+    gaps = [float((a - b).abs().max() / b.abs().max()) for a, b in ((gx, px), (gla, pla))]
+    _check(max(gaps) <= OT_VJP_TOL,
+           f"Sinkhorn VJP at {n} x {d}: gradients {gaps} <= {OT_VJP_TOL} of the largest entry")
+    print(f"Sinkhorn VJP at N={n}, d={d}: cloud's gradient within {gaps[0]:.3e}, log a's "
+          f"within {gaps[1]:.3e} of the largest entry of the plain version")
+    return max(gaps)
+
+
+def _dpf_ot_sv(device, alpha, sigma, beta):
+    """``DPF_OT`` on the SV model at N = ``DPF_OT_N`` with the parameters in
+    its closures (numbers, or tensors to differentiate), and the
+    observations."""
     from particle_filters_tpu_torch.models.dpf import DPF_OT
 
-    gen = torch.Generator(device=device).manual_seed(5)
     sv = simulate_sv_1d(DPF_OT_T, ALPHA, SIGMA, 0.6, seed=5, device=device)
 
     def transition(g, x, t):
-        return ALPHA * x + SIGMA * torch.randn(x.shape, generator=g, device=x.device)
+        return alpha * x + sigma * torch.randn(x.shape, generator=g, device=x.device)
 
     def loglik(x, y, t):
-        return -0.5 * (y * y / 0.36 * torch.exp(-x[:, 0]) + x[:, 0] + 2 * math.log(0.6))
+        return -0.5 * (y * y / (beta * beta) * torch.exp(-x[:, 0]) + x[:, 0]
+                       + 2 * torch.log(torch.as_tensor(beta)))
 
     filt = DPF_OT(DPF_OT_N, 1, transition, loglik, epsilon=0.1, n_sinkhorn_iters=50,
                   damping=0.5, device=device)
+    return filt, sv.Y[:, None]
+
+
+def run_dpf_ot_path(device, card) -> tuple[int, int]:
+    """``DPF_OT.run_filter`` on the SV model at N = ``DPF_OT_N`` for
+    ``DPF_OT_T`` steps: every resample through the tile kernels (the counter
+    raised by the plan a step), finite particles. Then the gradient of its
+    log-evidence in (alpha, sigma, beta), the initial cloud's std
+    sigma / sqrt(1 - alpha^2) included: with the counters zeroed just before
+    ``torch.autograd.grad``, every backward resample through the VJP kernels
+    (T - 1 of them: the last step's resample feeds no increment), 2 x 50
+    VJP half-updates each, finite gradients. Returns the forward's and the
+    backward's launches."""
+    from particle_filters_tpu_torch.resampling.ot import sinkhorn_ot_resample
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    filt, ys = _dpf_ot_sv(device, ALPHA, SIGMA, 0.6)
     before = ot_tile.sinkhorn_tile.launches
     t0 = time.perf_counter()
-    ps, _, log_z = filt.run_filter(gen, sv.Y[:, None], [0.0], [[0.64]],
-                                   return_log_evidence=True)
+    ps, _, log_z = filt.run_filter(gen, ys, [0.0], [[0.64]], return_log_evidence=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launched = ot_tile.sinkhorn_tile.launches - before
@@ -1558,7 +1625,31 @@ def run_dpf_ot_path(device, card) -> int:
            "DPF_OT: finite particles and log-evidence")
     print(f"DPF_OT N={DPF_OT_N} T={DPF_OT_T}: {launched} tile launches, {secs:.4f} s (host "
           f"clock, the first call included)  [{card}]")
-    return launched
+
+    params = [torch.tensor(v, device=device, requires_grad=True) for v in (ALPHA, SIGMA, 0.6)]
+    filt, ys = _dpf_ot_sv(device, *params)
+    std0 = params[1] / torch.sqrt(1 - params[0] * params[0])
+    _, _, log_z = filt.run_filter(gen.manual_seed(5), ys, [0.0], std0.reshape(1, 1),
+                                  return_log_evidence=True)
+    ot_tile.sinkhorn_tile.launches = 0
+    sinkhorn_ot_resample.vjp_half_updates = 0
+    t0 = time.perf_counter()
+    grads = torch.stack(torch.autograd.grad(log_z, params))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    vjp, halves = ot_tile.sinkhorn_tile.launches, sinkhorn_ot_resample.vjp_half_updates
+    steps = DPF_OT_T - 1
+    _check(vjp == steps * ot_tile.vjp_launches(50),
+           f"DPF_OT gradient: {vjp} VJP launches over {steps} backward steps, the plan's "
+           f"{steps * ot_tile.vjp_launches(50)}")
+    _check(halves == 2 * 50 * steps,
+           f"DPF_OT gradient: {halves} VJP half-updates, 2 x 50 x {steps}")
+    _check(bool(torch.isfinite(grads).all()) and bool(torch.isfinite(log_z)),
+           "DPF_OT gradient: finite log-evidence and gradient")
+    print(f"DPF_OT N={DPF_OT_N} T={DPF_OT_T} gradient: {vjp} VJP launches, {halves} VJP "
+          f"half-updates, d log Z / d(alpha, sigma, beta) = {grads.tolist()}, {secs:.4f} s "
+          f"(host clock, the backward alone)  [{card}]")
+    return launched, vjp
 
 
 def time_sinkhorn_tile(gen, device, card, n=8192):
@@ -1582,6 +1673,27 @@ def time_sinkhorn_tile(gen, device, card, n=8192):
           f"projection {proj:.6f} ms, plain half-update {plain:.6f} ms; bound {bound:.6f} ms "
           f"(exps) -> {bound / ms:.3f} of it, projection {bound / proj:.3f}  [{card}]")
     return ms, plain, None, (bound, "exps"), proj
+
+
+def time_sinkhorn_vjp(gen, device, card, n=8192):
+    """One resample's VJP (50 iterations and the projection, 4·50 + 2
+    launches) at N = ``n``, d = 1, by CUDA-graph replay, beside the plain
+    version's (torch, partner tiles of 256) and the exponentials' bound,
+    N² × (2·50 + 1) at the SFU's rate. Returns ``(ms, plain_ms, None,
+    (bound_ms, "exps"))``."""
+    x, log_a, log_b, saved, new_x, cot = _vjp_problem(gen, n, 1, device)
+    kw = dict(epsilon=OT_TILE_EPS, damping=OT_TILE_DAMPING)
+    runs = [_graph_ms(lambda: ot_tile.sinkhorn_tile_vjp(x, log_a, log_b, saved, new_x, cot,
+                                                         **kw), reps=2) for _ in range(2)]
+    plain = _time_ms(lambda: ot_tile.sinkhorn_tile_vjp_reference(
+        x, log_a, log_b, saved, new_x, cot, tile=256, **kw), reps=1, samples=1)
+    bound = n * n * (2 * OT_TILE_ITERS + 1) / ot_tile.SFU_EXP_PER_S * 1e3
+    ms = sum(runs) / 2
+    print(f"Sinkhorn VJP at N={n}, d=1: a resample's VJP {ms:.6f} ms ({runs[0]:.6f}, "
+          f"{runs[1]:.6f}; {ms / ot_tile.vjp_launches(OT_TILE_ITERS) * 1e3:.3f} us a pass), "
+          f"plain {plain:.6f} ms; bound {bound:.6f} ms (exps) -> {bound / ms:.3f} of it  "
+          f"[{card}]")
+    return ms, plain, None, (bound, "exps")
 
 
 def run_chunked_path(device, card):
@@ -1917,7 +2029,8 @@ def _build_all(gen) -> None:
         for fut in [pool.submit(k.entry) for k in kernels]:
             fut.result()
     ot_tile._PROJECT.entry()  # in the library just built for the dual loop
-    print(f"nvcc build+load of B2, S, X1, X2, X3, OT {time.perf_counter() - t0:.2f} s")
+    ot_tile._VJP.entry()
+    print(f"nvcc build+load of B2, S, X1, X2, X3, OT, OT-VJP {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     device = torch.device("cuda")
     for model, Q in ((SVModel(ALPHA, BETA), [[SIGMA**2]]), (LinearObsFirstModel(A2, 0.1), Q2)):
@@ -1952,7 +2065,8 @@ def main() -> None:
             "X1": check_x1(gen, N, device), "X2": check_x2(gen, N, device),
             "S": max(check_starts(gen, rows, n, device) for rows, n in S_SHAPES),
             "OT": max(check_sinkhorn_tile(gen, n, d, device)["particles"]
-                      for n, d in OT_TILE_SHAPES)}
+                      for n, d in OT_TILE_SHAPES),
+            "OT-VJP": max(check_sinkhorn_vjp(gen, n, d, device) for n, d in OT_VJP_SHAPES)}
     check_exact(gen, device)
     torch.cuda.synchronize()
 
@@ -1968,7 +2082,7 @@ def main() -> None:
     spf_counts = run_spf_path(device, card)
     run_dpf_path(device, card)
     run_ot_path(device, card)
-    counts["OT"] = run_dpf_ot_path(device, card)
+    counts["OT"], counts["OT-VJP"] = run_dpf_ot_path(device, card)
     chunked_counts = run_chunked_path(device, card)
     par_counts = run_parallel_path(gen, device, card)
     sv_counts = run_sv_columns(device, card)
@@ -1991,6 +2105,7 @@ def main() -> None:
     times["X3"] = (x3_ms, times["X3"][1], add_ms, times["X3"][3])
     times["S"] = s_times[(1, N)][:2] + (None, s_times[(1, N)][2])
     times["OT"] = time_sinkhorn_tile(gen, device, card)[:4]
+    times["OT-VJP"] = time_sinkhorn_vjp(gen, device, card)
     fused_ms = time_fused_run(N, card, fused_run)
     print(f"fused SV run N={N} T={T}: bench twin {bench_ms:.4f} ms/step (best of "
           f"{bench.RUNS}, host clock to a sync) against {fused_ms:.4f} (median of 5, CUDA "
@@ -2018,6 +2133,9 @@ def main() -> None:
         ("OT", "Sinkhorn half-update tile (cost in registers), N = 8192", "cuda",
          "particle_filters_tpu_torch/csrc/sinkhorn_tile.cu",
          "no TPU kernel: replaces the dense torch Sinkhorn"),
+        ("OT-VJP", "Sinkhorn VJP tile passes (plan recomputed in registers), one resample's "
+         "backward, N = 8192", "cuda", "particle_filters_tpu_torch/csrc/sinkhorn_tile.cu",
+         "no TPU kernel: replaces the dense torch Sinkhorn's autograd"),
     )
     kernels = []
     for key, name, route, source, replaces in rows:

@@ -53,8 +53,38 @@
 // The dual loop's entry makes 2 n_iters launches on the caller's stream and
 // never synchronises; with a delta pointer each half-update also folds
 // max |out_i - p_i| into delta[iteration] (an atomicMax on the bits of a
-// non-negative float, which is order-free). Plain C interface, bound with
-// ctypes (ops/sinkhorn_tile.py, where the plain version lies beside it).
+// non-negative float, which is order-free). With a saved buffer (a gradient
+// will be taken) the same launches write f and g after every iteration to
+// its rows, and each half-update's row normalizer t_i = k tau_i (base 2) to
+// an lse buffer: (4 n_iters + 2) N floats in all, nothing N x N.
+//
+// The vector-Jacobian product (pf_sinkhorn_vjp; sinkhorn_vjp_kernel) is the
+// unrolled loop's, through every iteration and the projection, from what
+// the forward saved. A half-update's softmax pi_ij = 2^(t_i + s_j - k C_ij),
+// s_j = k (h_j + eps log m_j), needs no running max (t is known, pi <= 1);
+// with u = damping * out-bar:
+//   p-bar += (1 - damping) out-bar,
+//   x-bar_i += 2 u_i sum_j pi_ij (x_i - x_j)            (the row pass),
+//   h-bar_j = -sum_i u_i pi_ij, log m-bar_j = eps h-bar_j,
+//   x-bar_j += 2 sum_i u_i pi_ij (x_j - x_i)            (the column pass);
+// the projection's plan Pi_ij = 2^(k (f_i + eps log a_i) + k g_j - k C_ij)
+// with y-bar the cotangent of x':
+//   V_i = sum_j Pi_ij y-bar_j, f-bar_i = x_i . V_i / eps, log a-bar_i = x_i . V_i,
+//   x-bar_i = V_i - (2/eps) sum_j Pi_ij (y-bar_j . x_i)(x_i - x_j)   (row pass),
+//   g-bar_j = y-bar_j . x'_j / eps,
+//   x-bar_j -= (2/eps) sum_i Pi_ij (y-bar_j . x_i)(x_j - x_i)       (column pass).
+// Each pass is the forward's loop with one thread a point and the block's
+// 16 warps splitting its partners, the cost formed in registers and N^2
+// exponentials a pass, so a half-update's VJP costs two forward passes; a
+// column pass is a row pass of the transposed plan (the cost is symmetric),
+// so no sum crosses blocks and nothing is atomic: the warps' partials are
+// combined in a fixed order and a launch is deterministic. The epilogues
+// carry the cotangents of f and g from half-update to half-update (the
+// column pass of tau_g folds h-bar into f-bar and scales it by 1 - damping
+// for the next tau_f, and tau_f's into g-bar), so the reverse loop,
+// 4 n_iters + 2 launches, is one call on the stream with no sync. Plain C
+// interface, bound with ctypes (ops/sinkhorn_tile.py, where the plain
+// versions lie beside it).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,14 +148,14 @@ constexpr int kLanes = 4;
 // One pass over all columns for the block's kRows rows, a_ij = s_j -
 // sum_d (x~_id - x~_jd)^2 with x~ = xs * x:
 //   kProject false: out_i = (1 - damping) prev_i + damping * tau_i; delta
-//     (may be null) gets max |out_i - prev_i|;
+//     (may be null) gets max |out_i - prev_i|, lse_out (may be null) k tau_i;
 //   kProject true: out_i = exp2(k prev_i + max_i) * sum_j exp2(a_ij - max_i) x~_j / xs.
 template <int D, bool kProject>
 __global__ void __launch_bounds__(kThreads, kProject ? 1 : 2)
     sinkhorn_tile_kernel(const float* __restrict__ x, const float* __restrict__ pot,
                          const float* __restrict__ logm, const float* prev, float* out,
-                         float* __restrict__ delta, int n, float eps, float k, float xs,
-                         float damping) {
+                         float* __restrict__ delta, float* __restrict__ lse_out, int n,
+                         float eps, float k, float xs, float damping) {
   constexpr int P = kRecord<D>;
   constexpr int kTileCols = kTileFloats / P;  // a multiple of kChunk
   __shared__ __align__(16) float smem[kWarps * kTileFloats];
@@ -265,7 +295,9 @@ __global__ void __launch_bounds__(kThreads, kProject ? 1 : 2)
   } else {
     float change = 0.0f;
     if (i < n) {
-      const float tau = -(top + log2f(part[0])) / k;
+      const float lse = top + log2f(part[0]);
+      const float tau = -lse / k;
+      if (lse_out != nullptr) lse_out[i] = -lse;
       const float p = prev[i];
       const float v = (1.0f - damping) * p + damping * tau;
       out[i] = v;
@@ -281,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, kProject ? 1 : 2)
 
 template <int D, bool kProject>
 cudaError_t launch(const float* x, const float* pot, const float* logm, const float* prev,
-                   float* out, float* delta, int n, float eps, float k, float xs,
+                   float* out, float* delta, float* lse, int n, float eps, float k, float xs,
                    float damping, cudaStream_t s) {
   // Each pass a programmatic dependent of the one before: its launch and its
   // rows' loads overlap that pass's epilogue and tail.
@@ -295,19 +327,242 @@ cudaError_t launch(const float* x, const float* pot, const float* logm, const fl
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, sinkhorn_tile_kernel<D, kProject>, x, pot,
-                                             logm, prev, out, delta, n, eps, k, xs, damping);
+                                             logm, prev, out, delta, lse, n, eps, k, xs,
+                                             damping);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <bool kProject>
 cudaError_t launch_d(int d, const float* x, const float* pot, const float* logm,
-                     const float* prev, float* out, float* delta, int n, float eps, float k,
-                     float xs, float damping, cudaStream_t s) {
+                     const float* prev, float* out, float* delta, float* lse, int n, float eps,
+                     float k, float xs, float damping, cudaStream_t s) {
+#define PF_LAUNCH(D) \
+  launch<D, kProject>(x, pot, logm, prev, out, delta, lse, n, eps, k, xs, damping, s)
   switch (d) {
-    case 1: return launch<1, kProject>(x, pot, logm, prev, out, delta, n, eps, k, xs, damping, s);
-    case 2: return launch<2, kProject>(x, pot, logm, prev, out, delta, n, eps, k, xs, damping, s);
-    case 3: return launch<3, kProject>(x, pot, logm, prev, out, delta, n, eps, k, xs, damping, s);
-    case 4: return launch<4, kProject>(x, pot, logm, prev, out, delta, n, eps, k, xs, damping, s);
+    case 1: return PF_LAUNCH(1);
+    case 2: return PF_LAUNCH(2);
+    case 3: return PF_LAUNCH(3);
+    case 4: return PF_LAUNCH(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PF_LAUNCH
+}
+
+// --- the vector-Jacobian product -------------------------------------------
+
+// The four passes of the VJP. A row pass gives each thread a point i on the
+// row side of the plan (the half-update's output, the projection's source)
+// and loops over the partners j; a column pass gives it a point j on the
+// column side (the half-update's h, the projection's target) and loops over
+// the i. Either way a cell's argument is r_i + c_j - k C_ij.
+enum VjpPass { kHalfRow, kHalfCol, kProjRow, kProjCol };
+
+constexpr int padded(int w) { return w <= 2 ? 2 : w <= 4 ? 4 : w <= 8 ? 8 : 16; }
+
+template <int D, int kPass>
+struct VjpShape {
+  static constexpr bool kRowPass = kPass == kHalfRow || kPass == kProjRow;
+  // A partner's record: its D coordinates, its scalar, then its weight
+  // u = damping * out-bar (kHalfCol) or its cotangent row y-bar (kProjRow).
+  static constexpr int kRecordW =
+      padded(D + 1 + (kPass == kHalfCol ? 1 : kPass == kProjRow ? D : 0));
+  // A thread's sums: x-bar's (kHalfRow, kProjCol), S and x-bar's (kHalfCol),
+  // V and x-bar's (kProjRow).
+  static constexpr int kParts = kPass == kHalfCol ? D + 1 : kPass == kProjRow ? 2 * D : D;
+};
+
+// What one VJP pass reads and writes (only what its pass needs is set).
+struct VjpArgs {
+  const float* x;      // n x D cloud
+  const float* lse;    // row side's t = k tau (half-updates), or null: the projection's
+  const float* rpot;   //   r = k (rpot + eps rlogm): f and log a
+  const float* rlogm;
+  const float* cpot;   // column side's c = k (cpot + eps clogm): h and log m, or g (clogm null)
+  const float* clogm;
+  const float* ybar;   // the cotangent of x' (n x D) and x' itself (projection)
+  const float* yout;
+  const float* cot_out;  // the half-update's out-bar (u = damping * out-bar)
+  float* cot_h;          // h-bar, updated to keep * h-bar - S (kHalfCol)
+  float* cot_f;          // f-bar and g-bar, set by the projection's passes
+  float* cot_g;
+  float* cla;            // log a-bar: set by kProjRow, added to by kHalfCol (may be null)
+  float* xbar;           // x-bar (n x D): set by kProjRow, added to by the rest
+  int n;
+  float eps, k, xs, damping, keep;
+};
+
+__device__ __forceinline__ float row_scalar(const VjpArgs& a, int i) {
+  return a.lse != nullptr ? a.lse[i] : a.k * (a.rpot[i] + a.eps * a.rlogm[i]);
+}
+
+__device__ __forceinline__ float col_scalar(const VjpArgs& a, int j) {
+  return a.clogm != nullptr ? a.k * (a.cpot[j] + a.eps * a.clogm[j]) : a.k * a.cpot[j];
+}
+
+template <int D, int kPass>
+__global__ void __launch_bounds__(kThreads, 2) sinkhorn_vjp_kernel(const VjpArgs a) {
+  using S = VjpShape<D, kPass>;
+  constexpr int P = S::kRecordW;
+  constexpr int kParts = S::kParts;
+  constexpr int kTileCols = kTileFloats / P;
+  constexpr float kLn2 = 0.693147180559945f;
+  __shared__ __align__(16) float smem[kWarps * kTileFloats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kRows + lane;  // this lane's point
+  const bool live = i < a.n;
+
+  // Before the wait only what the forward wrote: the cloud, the saved
+  // potentials and normalizers (the cotangents are the previous pass's).
+  float xo[D], acc[kParts];
+#pragma unroll
+  for (int d = 0; d < D; ++d) xo[d] = live ? a.xs * a.x[static_cast<long long>(i) * D + d] : 0.0f;
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) acc[q] = 0.0f;
+  const float own = !live ? -INFINITY : S::kRowPass ? row_scalar(a, i) : col_scalar(a, i);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  float yo[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    yo[d] = kPass == kProjCol && live ? a.ybar[static_cast<long long>(i) * D + d] : 0.0f;
+  }
+
+  const int c_begin = static_cast<int>(static_cast<long long>(warp) * a.n / kWarps);
+  const int c_end = static_cast<int>(static_cast<long long>(warp + 1) * a.n / kWarps);
+  float* buf = smem + warp * kTileFloats;
+  for (int t0 = c_begin; t0 < c_end; t0 += kTileCols) {
+    const int cols = min(kTileCols, c_end - t0);
+    for (int c = lane; c < cols; c += 32) {
+      const int j = t0 + c;
+      float rec[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) rec[q] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) rec[d] = a.xs * a.x[static_cast<long long>(j) * D + d];
+      rec[D] = S::kRowPass ? col_scalar(a, j) : row_scalar(a, j);
+      if constexpr (kPass == kHalfCol) rec[D + 1] = a.damping * a.cot_out[j];
+      if constexpr (kPass == kProjRow) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) rec[D + 1 + d] = a.ybar[static_cast<long long>(j) * D + d];
+      }
+      store_record<P>(buf + c * P, rec);
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int c = 0; c < cols; ++c) {
+      float rec[P];
+      load_record<P>(buf + c * P, rec);
+      float v = own + rec[D], df[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        df[d] = xo[d] - rec[d];
+        v = fmaf(-df[d], df[d], v);
+      }
+      const float e = ex2(v);  // pi or Pi: at most ~1, no running max
+      if constexpr (kPass == kHalfRow) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(e, df[d], acc[d]);
+      } else if constexpr (kPass == kHalfCol) {
+        const float ew = e * rec[D + 1];
+        acc[0] += ew;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[1 + d] = fmaf(ew, df[d], acc[1 + d]);
+      } else {
+        // z~ = y-bar_j . x~_i: the projection's row pass has y-bar staged and
+        // x~_i its own, the column pass the other way round.
+        float z = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          z = kPass == kProjRow ? fmaf(rec[D + 1 + d], xo[d], z) : fmaf(yo[d], rec[d], z);
+        }
+        const float ez = e * z;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          if constexpr (kPass == kProjRow) {
+            acc[d] = fmaf(e, rec[D + 1 + d], acc[d]);
+            acc[D + d] = fmaf(ez, df[d], acc[D + d]);
+          } else {
+            acc[d] = fmaf(ez, df[d], acc[d]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  asm volatile("griddepcontrol.launch_dependents;");
+
+  // Combine the warps' partials of each point, warp by warp in order.
+  __syncthreads();
+  float* ps = smem;  // [kWarps][kRows][kParts]
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) ps[(warp * kRows + lane) * kParts + q] = acc[q];
+  __syncthreads();
+  if (threadIdx.x >= kRows) return;
+  const int p = blockIdx.x * kRows + threadIdx.x;
+  if (p >= a.n) return;
+  float part[kParts];
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) part[q] = 0.0f;
+  for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) part[q] += ps[(w * kRows + threadIdx.x) * kParts + q];
+  }
+  float* gx = a.xbar + static_cast<long long>(p) * D;
+  // d tau / d x per unit of pi times the scaled difference: 2 xs / k.
+  const float half = 2.0f * a.xs / a.k;
+  if constexpr (kPass == kHalfRow) {
+    const float u = half * a.damping * a.cot_out[p];
+#pragma unroll
+    for (int d = 0; d < D; ++d) gx[d] = fmaf(u, part[d], gx[d]);
+  } else if constexpr (kPass == kHalfCol) {
+    a.cot_h[p] = fmaf(a.keep, a.cot_h[p], -part[0]);
+    if (a.cla != nullptr) a.cla[p] = fmaf(-a.eps, part[0], a.cla[p]);
+#pragma unroll
+    for (int d = 0; d < D; ++d) gx[d] = fmaf(half, part[1 + d], gx[d]);
+  } else if constexpr (kPass == kProjRow) {
+    float xv = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) xv = fmaf(a.x[static_cast<long long>(p) * D + d], part[d], xv);
+    a.cot_f[p] = kLn2 * a.k * xv;
+    a.cla[p] = kLn2 * a.k * a.eps * xv;
+#pragma unroll
+    for (int d = 0; d < D; ++d) gx[d] = fmaf(-2.0f * kLn2, part[D + d], part[d]);
+  } else {
+    float yv = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const long long q = static_cast<long long>(p) * D + d;
+      yv = fmaf(a.ybar[q], a.yout[q], yv);
+    }
+    a.cot_g[p] = kLn2 * a.k * yv;
+#pragma unroll
+    for (int d = 0; d < D; ++d) gx[d] = fmaf(-2.0f * kLn2, part[d], gx[d]);
+  }
+}
+
+template <int D, int kPass>
+cudaError_t launch_vjp(const VjpArgs& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.n + kRows - 1) / kRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, sinkhorn_vjp_kernel<D, kPass>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int kPass>
+cudaError_t launch_vjp_d(int d, const VjpArgs& a, cudaStream_t s) {
+  switch (d) {
+    case 1: return launch_vjp<1, kPass>(a, s);
+    case 2: return launch_vjp<2, kPass>(a, s);
+    case 3: return launch_vjp<3, kPass>(a, s);
+    case 4: return launch_vjp<4, kPass>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -319,26 +574,46 @@ bool bad_shape(int n, int d) {
 }  // namespace
 
 // The dual loop: f = g = 0, then n_iters times f <- tau_f (h = g + eps log_b),
-// g <- tau_g (h = f + eps log_a), damped, in place; 2 n_iters launches on
-// stream. x is n x d (d <= 4), the rest n-long; delta, if not null, gets
-// n_iters entries, entry t the largest change of f or g in iteration t.
+// g <- tau_g (h = f + eps log_a), damped; 2 n_iters launches on stream. x is
+// n x d (d <= 4), the rest n-long; delta, if not null, gets n_iters entries,
+// entry t the largest change of f or g in iteration t. Without saved, f and
+// g are updated in place; with saved ((n_iters + 1) x 2 x n: row 2t is f and
+// row 2t + 1 g after t iterations, row 0 and 1 zeros) and lse (n_iters x 2 x
+// n: k tau of iteration t's tau_f, then tau_g) every iteration's are kept,
+// and f and g (then ignored, may be null) are the last rows of saved.
 // k = log2(e) / eps and xs = sqrt(k), both as the caller rounded them.
 // Returns the first launch error, or 0.
 extern "C" int pf_sinkhorn_dual(const float* x, const float* log_a, const float* log_b,
-                                float* f, float* g, float* delta, int n, int d, int n_iters,
-                                float eps, float k, float xs, float damping, void* stream) {
-  if (bad_shape(n, d) || n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                float* f, float* g, float* delta, float* saved, float* lse,
+                                int n, int d, int n_iters, float eps, float k, float xs,
+                                float damping, void* stream) {
+  if (bad_shape(n, d) || n_iters < 0 || (saved == nullptr && lse != nullptr) ||
+      (saved != nullptr && lse == nullptr && n_iters > 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(f, 0, sizeof(float) * n, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(g, 0, sizeof(float) * n, s);
+  const long long N = n;
+  cudaError_t err = saved != nullptr ? cudaMemsetAsync(saved, 0, sizeof(float) * 2 * N, s)
+                                     : cudaMemsetAsync(f, 0, sizeof(float) * n, s);
+  if (err == cudaSuccess && saved == nullptr) err = cudaMemsetAsync(g, 0, sizeof(float) * n, s);
   if (err == cudaSuccess && delta != nullptr && n_iters > 0) {
     err = cudaMemsetAsync(delta, 0, sizeof(float) * n_iters, s);
   }
   for (int it = 0; it < n_iters && err == cudaSuccess; ++it) {
     float* slot = delta != nullptr ? delta + it : nullptr;
-    err = launch_d<false>(d, x, g, log_b, f, f, slot, n, eps, k, xs, damping, s);
+    float *f_old = f, *g_old = g, *f_new = f, *g_new = g, *lse_f = nullptr, *lse_g = nullptr;
+    if (saved != nullptr) {
+      f_old = saved + 2 * it * N;
+      g_old = f_old + N;
+      f_new = g_old + N;
+      g_new = f_new + N;
+      lse_f = lse + 2 * it * N;
+      lse_g = lse_f + N;
+    }
+    err = launch_d<false>(d, x, g_old, log_b, f_old, f_new, slot, lse_f, n, eps, k, xs, damping, s);
     if (err == cudaSuccess) {
-      err = launch_d<false>(d, x, f, log_a, g, g, slot, n, eps, k, xs, damping, s);
+      err = launch_d<false>(d, x, f_new, log_a, g_old, g_new, slot, lse_g, n, eps, k, xs, damping,
+                            s);
     }
   }
   return static_cast<int>(err);
@@ -351,6 +626,65 @@ extern "C" int pf_sinkhorn_project(const float* x, const float* log_a, const flo
                                    const float* g, float* out, int n, int d, float eps,
                                    float k, float xs, void* stream) {
   if (bad_shape(n, d)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_d<true>(d, x, f, log_a, g, out, nullptr, n, eps, k, xs, 1.0f,
-                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_d<true>(d, x, f, log_a, g, out, nullptr, nullptr, n, eps, k, xs,
+                                         1.0f, static_cast<cudaStream_t>(stream)));
+}
+
+// The VJP of the dual loop and the projection together, from what
+// pf_sinkhorn_dual saved (saved, lse) and the projection's output x_out:
+// grad_x (n x d) and grad_log_a (n) of <grad_out, x_out>, through every
+// iteration. cot_f and cot_g are n-long scratch (the cotangents of f and g
+// as the reverse loop carries them). The projection's two passes, then for
+// t = n_iters - 1 ... 0 tau_g's row and column passes and tau_f's: 4 n_iters
+// + 2 launches on stream, no sync. Returns the first launch error, or 0.
+extern "C" int pf_sinkhorn_vjp(const float* x, const float* log_a, const float* log_b,
+                               const float* saved, const float* lse, const float* x_out,
+                               const float* grad_out, float* grad_x, float* grad_log_a,
+                               float* cot_f, float* cot_g, int n, int d, int n_iters, float eps,
+                               float k, float xs, float damping, void* stream) {
+  if (bad_shape(n, d) || n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long N = n;
+  VjpArgs a = {};
+  a.x = x;
+  a.xbar = grad_x;
+  a.n = n;
+  a.eps = eps;
+  a.k = k;
+  a.xs = xs;
+  a.damping = damping;
+  VjpArgs pr = a;  // the projection, from f and g after the last iteration
+  pr.rpot = saved + 2 * n_iters * N;
+  pr.rlogm = log_a;
+  pr.cpot = pr.rpot + N;
+  pr.ybar = grad_out;
+  pr.yout = x_out;
+  pr.cot_f = cot_f;
+  pr.cot_g = cot_g;
+  pr.cla = grad_log_a;
+  cudaError_t err = launch_vjp_d<kProjRow>(d, pr, s);
+  if (err == cudaSuccess) err = launch_vjp_d<kProjCol>(d, pr, s);
+  for (int it = n_iters - 1; it >= 0 && err == cudaSuccess; --it) {
+    const float* g_old = saved + (2 * it + 1) * N;
+    VjpArgs tg = a;  // tau_g of iteration it: h = f after it, m = a; its h-bar goes to f-bar
+    tg.lse = lse + (2 * it + 1) * N;
+    tg.cpot = g_old + N;
+    tg.clogm = log_a;
+    tg.cot_out = cot_g;
+    tg.cot_h = cot_f;
+    tg.keep = it == n_iters - 1 ? 1.0f : 1.0f - damping;  // f-bar of the later tau_f's p
+    tg.cla = grad_log_a;
+    VjpArgs tf = a;  // tau_f: h = g before it, m = b (a constant); its h-bar goes to g-bar
+    tf.lse = lse + 2 * it * N;
+    tf.cpot = g_old;
+    tf.clogm = log_b;
+    tf.cot_out = cot_f;
+    tf.cot_h = cot_g;
+    tf.keep = 1.0f - damping;  // g-bar of tau_g's p
+    err = launch_vjp_d<kHalfRow>(d, tg, s);
+    if (err == cudaSuccess) err = launch_vjp_d<kHalfCol>(d, tg, s);
+    if (err == cudaSuccess) err = launch_vjp_d<kHalfRow>(d, tf, s);
+    if (err == cudaSuccess) err = launch_vjp_d<kHalfCol>(d, tf, s);
+  }
+  return static_cast<int>(err);
 }

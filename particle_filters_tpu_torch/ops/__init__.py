@@ -10,7 +10,8 @@
   by ``resampling.hard.batched_starts`` and ``_child_run_ends_u``.
 - The Sinkhorn tile kernels, ``sinkhorn_tile.sinkhorn_tile`` and
   ``tile_projection``: the damped dual loop and the projection with the cost
-  formed in registers (CUDA C++), driven by ``resampling.ot``.
+  formed in registers, and ``sinkhorn_tile_vjp``, their vector-Jacobian
+  product through every iteration (CUDA C++), driven by ``resampling.ot``.
 - The profiling probes (CUDA C++), driven by ``benchmarks``: X1,
   ``window_resample.window_compare_sum``; X2,
   ``span_resample.span_compare_sum``, on the prep of ``resample_blocked``;

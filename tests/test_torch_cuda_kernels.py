@@ -21,8 +21,9 @@ and the exact run ends at N = 2^25 on the card equal the CPU's. Kernel S
 weight regimes, differing at no more than 1e-5 of the run ends
 (``chip_smoke.check_starts``). The Sinkhorn tile kernels against their
 plain version from N = 1 to 20000 at d = 1 and 3, and ``DPF_OT.run_filter``
-at N = 8192 resampling through them (``chip_smoke.check_sinkhorn_tile``,
-``chip_smoke.run_dpf_ot_path``). Run on a GPU host with
+at N = 8192 resampling through them and its gradient through the VJP
+kernels (``chip_smoke.check_sinkhorn_tile``, ``chip_smoke.run_dpf_ot_path``).
+Run on a GPU host with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 """
@@ -255,9 +256,12 @@ def test_sinkhorn_tile_matches_plain(cuda_device, n, d):
 
 def test_dpf_ot_resamples_through_the_tile_kernels(cuda_device):
     """``DPF_OT.run_filter`` at N = 8192: every step's resample launches the
-    plan's 2·50 + 1 tile kernels."""
+    plan's 2·50 + 1 tile kernels; the gradient of its log-evidence every
+    backward resample's 4·50 + 2 VJP launches (T − 1 of them)."""
     import chip_smoke
 
-    from particle_filters_tpu_torch.ops.sinkhorn_tile import launches
+    from particle_filters_tpu_torch.ops.sinkhorn_tile import launches, vjp_launches
 
-    assert chip_smoke.run_dpf_ot_path(cuda_device, "") == chip_smoke.DPF_OT_T * launches(50)
+    forward, backward = chip_smoke.run_dpf_ot_path(cuda_device, "")
+    assert forward == chip_smoke.DPF_OT_T * launches(50)
+    assert backward == (chip_smoke.DPF_OT_T - 1) * vjp_launches(50)

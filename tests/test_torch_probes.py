@@ -548,7 +548,8 @@ def _ctype(param: str):
     pytest.param(resample._KERNEL, id="B2"), pytest.param(systematic_starts._KERNEL, id="S"),
     pytest.param(window_resample._KERNEL, id="X1"), pytest.param(span_resample._KERNEL, id="X2"),
     pytest.param(launch_probe._KERNEL, id="X3"), pytest.param(sinkhorn_tile._DUAL, id="OT dual"),
-    pytest.param(sinkhorn_tile._PROJECT, id="OT projection")])
+    pytest.param(sinkhorn_tile._PROJECT, id="OT projection"),
+    pytest.param(sinkhorn_tile._VJP, id="OT VJP")])
 def test_kernel_signature_matches_its_c_entry(kernel):
     """Each wrapper's signature is its C entry point's, parameter by
     parameter, the stream last: ctypes would pass a mistyped argument

@@ -15,10 +15,11 @@
 - Dispatch: CPU tensors never load the kernels; a float32 cloud on the card
   takes them (a CUDA tensor stood in for by a CPU tensor whose ``device``
   reads ``cuda``, the library by a stub that records its calls), with the
-  counters raised by the launch plan; a call that needs the gradient, or
-  runs under ``torch.func.vmap`` (tensor ε and damping, as
-  ``examples/ex08_dpf_ot_tuning.py``'s sweep), keeps the torch ops even
-  where the cloud is on the card.
+  counters raised by the launch plan; a call that needs autograd's gradient
+  takes them too (through the tile VJP: ``tests/test_torch_sinkhorn_vjp.py``),
+  while one under ``torch.func`` (``grad``, or ``vmap`` with tensor ε and
+  damping, as ``examples/ex08_dpf_ot_tuning.py``'s sweep) keeps the torch
+  ops even where the cloud is on the card.
 
 The kernels themselves are held against the plain version on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
@@ -131,8 +132,9 @@ class _Stub:
     def __init__(self):
         self.calls = []
 
-        def pf_sinkhorn_dual(x, log_a, log_b, f, g, delta, n, d, n_iters, eps, k, xs, damping,
-                             stream):
+        def pf_sinkhorn_dual(x, log_a, log_b, f, g, delta, saved, lse, n, d, n_iters, eps, k,
+                             xs, damping, stream):
+            assert saved is None and lse is None  # no history kept without a gradient
             self.calls.append(("dual", dict(delta=delta, n=n, d=d, n_iters=n_iters, eps=eps,
                                             k=k, xs=xs, damping=damping)))
             return 0
@@ -201,7 +203,7 @@ def test_card_cloud_takes_the_kernels(stub, d, diagnostics):
 
 @pytest.mark.parametrize("what", ["float64", "d = 5", "tensor epsilon", "tensor damping",
                                   "particles need the gradient", "weights need the gradient"])
-def test_what_keeps_the_torch_ops_on_the_card(what):
+def test_what_keeps_the_torch_ops_on_the_card(monkeypatch, what):
     x, w = _cloud(16, 5 if what == "d = 5" else 2, "spread")
     eps, damping = 0.1, 0.5
     if what == "float64":
@@ -210,30 +212,44 @@ def test_what_keeps_the_torch_ops_on_the_card(what):
         eps = torch.tensor(0.1)
     elif what == "tensor damping":
         damping = torch.tensor(0.5)
-    elif what.startswith("particles"):
-        x.requires_grad_(True)
-    elif what.startswith("weights"):
-        w.requires_grad_(True)
-    assert not ot._on_tiles(_cuda_like(x), _cuda_like(w), eps, damping)
-    if "gradient" in what:
-        with torch.no_grad():  # the same call with nothing to differentiate takes them
-            assert ot._on_tiles(_cuda_like(x), _cuda_like(w), eps, damping)
+    if "gradient" not in what:
+        assert not ot._on_tiles(_cuda_like(x), _cuda_like(w), eps, damping)
+        return
+    # autograd's gradient takes the tile kernels on the card (their VJP in
+    # the backward) and the torch ops on the CPU; under torch.func (here
+    # its grad, on a cloud that reads ``cuda``) the torch ops stay
+    argnum = 0 if what.startswith("particles") else 1
+    (x, w)[argnum].requires_grad_(True)
+    assert ot._on_tiles(_cuda_like(x), _cuda_like(w), eps, damping)
+    assert not ot._on_tiles(x, w, eps, damping)
+    monkeypatch.setattr(ot, "_on_card", lambda t: True)
+    routes = []
+
+    def probe(xx, ww):
+        routes.append(ot._on_tiles(xx, ww, eps, damping))
+        return torch.sum(xx) + torch.sum(ww)
+
+    torch.func.grad(probe, argnums=argnum)(x.detach(), w.detach())
+    assert routes == [False]
 
 
 def test_gradient_reaches_the_particles_through_the_torch_ops(monkeypatch):
+    """On the CPU autograd differentiates the torch ops; on the card a
+    ``torch.func.grad`` keeps them (the library is never reached) and gives
+    the same gradient."""
     x, w = _cloud(24, 2, "spread")
     c = torch.arange(48.0).reshape(24, 2) % 3 - 1.0
 
-    def grad_of_a_functional():
-        xx = x.clone().requires_grad_(True)
+    def functional(xx):
         new_p, _ = ot.sinkhorn_ot_resample(xx, w, epsilon=0.1, n_iters=20)
-        torch.sum(torch.tanh(new_p) * c).backward()
-        return xx.grad
+        return torch.sum(torch.tanh(new_p) * c)
 
-    on_cpu = grad_of_a_functional()
+    xx = x.clone().requires_grad_(True)
+    functional(xx).backward()
+    on_cpu = xx.grad
     monkeypatch.setattr(ot, "_on_card", lambda t: True)
     monkeypatch.setattr(_nvcc, "load_library", lambda name, *sources: _Refuse())
-    on_card = grad_of_a_functional()
+    on_card = torch.func.grad(functional)(x)
     assert torch.isfinite(on_card).all() and float(on_card.abs().max()) > 0
     assert torch.equal(on_card, on_cpu)
 
