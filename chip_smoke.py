@@ -18,7 +18,12 @@ super-groups get NaN); kernel S (the systematic starts from the weights)
 against the plain chain at rows x N = 1 x 2^24, 1 x 2^20, 1 x 3000,
 100 x 200 and 100 x 10^4 on five weight regimes (run ends within one of
 plain at no more than 1e-5 of the positions, the count printed, and a wrong
-u shown to move more; the starts sorted and bounded; two calls bit-equal);
+u shown to move more; the starts sorted and bounded; two calls bit-equal),
+its log-domain input (log-weights and their log-normalizers) against the
+chain fed exp(logw - log_z) under the same share, its linear mode bit for
+bit as before that input (SHA-256 digests on integer-made inputs), and
+degenerate clouds (all -inf, one finite weight, a +inf) as the normalized
+path gives them;
 the Sinkhorn tile kernels (the dual loop and the projection) against their
 plain version at N x d from 1 x 1 to 20000 x 3 on a spread cloud and on a
 point mass with a particle 8 sigma out (potentials, dual changes and new
@@ -31,8 +36,10 @@ Then:
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
   when ESS < N/2) through ``FusedSIRFilter`` and through the general
-  ``ParticleFilter``, checked, with B1 and B2 counted, and a run that
-  never resamples, which must launch B1 and no other kernel per step;
+  ``ParticleFilter``, checked, with B1 and B2 counted, every resample step
+  of the fused filter one row of kernel S's log-domain input (B1's log Z,
+  no normalization of its own), and a run that never resamples, which must
+  launch B1 and no other kernel per step;
 - the entry path (``particle_filters_tpu_torch/entry.py``): ``entry()``'s
   one fused step at N = 2^20 (B1 launched once, B2 as often as it
   resampled, a finite state, 0 < ESS <= N), its posterior mean within 5
@@ -44,7 +51,8 @@ Then:
 - the exact path: the run ends at N = 2^25 on the card bit-equal to the
   same call on the CPU (lognormal sigma = 2 and a point mass), and
   ``FusedSIRFilter`` on the SV model at N = 2^25, T = 50 (B1, and B2 on
-  exact starts), with B1 and B2 counted;
+  exact starts), with B1 and B2 counted; here and on the SNLG, skew-t and
+  MAT paths no row takes kernel S's log-domain input;
 - the SNLG path (``benchmarks.snlg``): KF, KF at sigma_z = 1, UKF, EDH-200,
   LEDH-200 and EDH-10000 on the sensor network, d = 64, T = 50, 100 trials
   batched, each held to the JAX package's MSE (KF and UKF within 1e-3
@@ -154,6 +162,7 @@ the kernels' JSON line, the card's ``nvidia-smi`` name and power limit, and
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -220,6 +229,7 @@ from particle_filters_tpu_torch.parallel.launch import process_group
 from particle_filters_tpu_torch.resampling.hard import (
     _child_run_ends_u,
     _systematic_starts,
+    _weights_from,
     batched_starts,
 )
 from particle_filters_tpu_torch.simulators import simulate_sv_1d
@@ -251,6 +261,17 @@ S_TIMED = ((1, 1 << 24), (1, 1 << 20), (100, 200))
 # lies within a few of its ulps of an f32 rounding boundary; a u read from
 # another row, or none, moves about a third of the run ends.
 S_DIFF_SHARE = 1e-5
+# Kernel S's linear mode, bit for bit as it was before its log-domain input:
+# the SHA-256 of its run ends (M = N) and starts at each of S_SHAPES, on
+# inputs made by integer arithmetic alone (_s_pinned: the same bits on any
+# host), as the kernel before the log-domain input wrote them on the H100.
+S_LINEAR_SHA256 = {
+    (1, 1 << 24): "4c452ce824f534ca847ba0b101fdb69df214268c4c04d84185218e103ea2d099",
+    (1, 1 << 20): "52ffcd5c2c0c08faa98ba78d2dce8fee37bb5c83d8cf3155c9e2b0be20f48c1d",
+    (1, 3000): "fdbc69c0526211188ee6532bd9a102bd7f99425e1681c57d30ac525c6bb25523",
+    (100, 200): "465491822ed8db18ba8a077ab00f30baf63015e75293518a239df218127d2622",
+    (100, 10_000): "80e9b688d3949133462b8cf467adf9ef461d3f695eba9d4a077ecf199f148770",
+}
 B2_SIR_SHAPE = (1, spf.N_SIR, 9)  # SPF example 2's SIR PF: one cloud of 10^4 x 9
 SPF_BETA_TOL = 1e-4  # beta* on the card against the CPU port
 # SPF example 2 runs its first SPF_EX2_STEPS time steps here (the module runs
@@ -416,6 +437,98 @@ def _s_cases(gen, rows, n, device):
     tiny[:, ::1024] = 1.0
     yield "tiny weights", tiny / tiny.sum(1, keepdim=True)
     yield "all under 1e-38", torch.full((rows, n), 1e-40, device=device)
+
+
+def _s_pinned(rows, n, device):
+    """Weights over 40 binades with hashed mantissas (their f64 sums round,
+    so the order of the additions shows in the bits) and u's, from integer
+    arithmetic alone."""
+    i = torch.arange(rows * n, dtype=torch.int64, device=device)
+    h = (i * 2654435761 + 12345) % (1 << 32)
+    g = ((i ^ (i >> 7)) * 2246822519 + 777) % (1 << 32)
+    bits = ((127 - h % 40) << 23) | (g & 0x7FFFFF)
+    w = bits.to(torch.int32).view(torch.float32).view(rows, n).contiguous()
+    k = torch.arange(1, rows + 1, dtype=torch.int64, device=device)
+    return w, ((k * 40503) % 65536).to(torch.float32) / 65536
+
+
+def check_starts_linear_pinned(rows, n, device) -> str:
+    """Kernel S's linear mode (no log_z) on ``_s_pinned``'s inputs: its run
+    ends and starts hash to ``S_LINEAR_SHA256``'s digest for the shape, so
+    they are the bits the kernel wrote before its log-domain input. Returns
+    the digest."""
+    w, u = _s_pinned(rows, n, device)
+    t, s = ks.systematic_run_ends(w, n, u), ks.systematic_starts(w, u)
+    digest = hashlib.sha256(t.cpu().numpy().tobytes() + s.cpu().numpy().tobytes()).hexdigest()
+    want = S_LINEAR_SHA256.get((rows, n))
+    _check(digest == want, f"S linear mode at {rows} x {n}: digest {digest}, want {want}")
+    print(f"S linear mode {rows} x {n}: run ends and starts bit-equal to before ({digest[:16]})")
+    return digest
+
+
+def _log_cases(gen, rows, n, device):
+    """``_s_cases``' weights as log-weights, each row shifted by a constant
+    in [-40, 40] (no longer normalized), with their log-normalizers."""
+    for label, w in _s_cases(gen, rows, n, device):
+        lw = torch.log(w) + (80.0 * torch.rand((rows, 1), generator=gen, device=device) - 40.0)
+        yield label, lw.contiguous(), torch.logsumexp(lw, dim=1)
+
+
+def check_starts_log(gen, rows, n, device) -> int:
+    """Kernel S's log-domain input against the plain chain fed
+    exp(logw − log_z): starts within one at no more than ``S_DIFF_SHARE``
+    of the positions, two calls bit-equal, the launches and the log rows
+    counted. Returns the largest difference (0 or 1)."""
+    most = 0
+    passes = ks.plan(rows, n).passes
+    allowed = int(S_DIFF_SHARE * rows * n)
+    for label, lw, lz in _log_cases(gen, rows, n, device):
+        u = torch.rand(rows, generator=gen, device=device)
+        launches, log_rows = ks.systematic_starts.launches, ks.systematic_starts.log_rows
+        s = ks.systematic_starts(lw, u, log_z=lz)
+        s2 = ks.systematic_starts(lw, u, log_z=lz)
+        torch.cuda.synchronize()
+        _check(ks.systematic_starts.launches == launches + 2 * passes,
+               f"S log domain launched {ks.systematic_starts.launches - launches}, "
+               f"want {2 * passes}")
+        _check(ks.systematic_starts.log_rows == log_rows + 2 * rows,
+               f"S log rows {ks.systematic_starts.log_rows - log_rows}, want {2 * rows}")
+        _check(torch.equal(s, s2), f"S log domain two calls bit-equal ({label})")
+        ref = ks.starts_reference(torch.exp(lw - lz[:, None]), u)
+        diff = (s.long() - ref.long()).abs()
+        count = int((diff != 0).sum())
+        _check(int(diff.max()) <= 1, f"S log domain within one of plain ({label}, {rows} x {n})")
+        _check(count <= allowed, f"S log domain off plain at {count} of {rows * n} positions, "
+                                 f"at most {allowed} allowed ({label})")
+        most = max(most, int(diff.max()))
+        print(f"S log {label:18s} {rows} x {n}: {count} starts differ by one from the chain "
+              f"fed exp(logw - log_z) (of {rows * n}, at most {allowed} allowed), two calls "
+              f"bit-equal, {passes} passes")
+    return most
+
+
+S_DEGENERATE = ("all -inf", "all -inf, guarded log Z", "one finite weight", "+inf log Z")
+
+
+def check_starts_degenerate(label, device, n=20_000) -> None:
+    """A degenerate cloud through kernel S's log-domain input gives the
+    starts of the normalized path (``log_normalize``, then the linear
+    mode), bit for bit: all weights 0, one weight 1, NaN at a +inf."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    lw = torch.full((1, n), -math.inf, device=device)
+    if label == "one finite weight":
+        lw[0, 1234] = 3.25
+    elif label == "+inf log Z":
+        lw = 2.0 * torch.randn((1, n), generator=gen, device=device)
+        lw[0, 77] = math.inf
+    lz = torch.logsumexp(lw, dim=1)
+    if label == "all -inf, guarded log Z":
+        lz = torch.log(torch.full((1,), 1e-30, device=device))
+    u = torch.rand(1, generator=gen, device=device)
+    got = batched_starts(lw, u, log_z=lz)
+    want = batched_starts(_weights_from(None, lw), u)
+    _check(torch.equal(got, want), f"S log domain, {label}: the normalized path's starts")
+    print(f"S log domain, {label} (log Z {float(lz[0])}): starts equal to the normalized path's")
 
 
 def _wrong_u(u):
@@ -734,9 +847,10 @@ def run_main_path(n, device):
     fused_step.launches = 0
     b2.resample_by_starts.launches = 0
     ks.systematic_starts.launches = 0
+    ks.systematic_starts.log_rows = 0
     _, hist = f.run(gen, state0, zs)
     counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches,
-              "S": ks.systematic_starts.launches}
+              "S": ks.systematic_starts.launches, "S log rows": ks.systematic_starts.log_rows}
     rmse, frac = _check_history(hist, sv, "fused")
     n_res = int(hist["resampled"].sum())
     print(f"fused SV run N={n} T={T}: sv_rmse {rmse:.4f}, resample_frac {frac:.3f}, "
@@ -746,6 +860,9 @@ def run_main_path(n, device):
         _check(counts["B2"] == n_res > 0, f"B2 launched {counts['B2']} times, want {n_res} > 0")
         want = ks.plan(1, n).passes * n_res
         _check(counts["S"] == want, f"S launched {counts['S']} times, want {want}")
+        # Every resample step took the step's log Z into kernel S's log domain.
+        _check(counts["S log rows"] == counts["B2"],
+               f"S read {counts['S log rows']} rows as log-weights, want B2's {counts['B2']}")
 
     pf = ParticleFilter(
         lambda x, u: model.g(x), None, Q=[[SIGMA**2]], R=None, Np=n,
@@ -2067,16 +2184,27 @@ def main() -> None:
             "OT": max(check_sinkhorn_tile(gen, n, d, device)["particles"]
                       for n, d in OT_TILE_SHAPES),
             "OT-VJP": max(check_sinkhorn_vjp(gen, n, d, device) for n, d in OT_VJP_SHAPES)}
+    errs["S"] = max([errs["S"]] + [check_starts_log(gen, rows, n, device)
+                                   for rows, n in S_SHAPES])
+    for rows, n in S_SHAPES:
+        check_starts_linear_pinned(rows, n, device)
+    for label in S_DEGENERATE:
+        check_starts_degenerate(label, device)
     check_exact(gen, device)
     torch.cuda.synchronize()
 
     counts, fused_run = run_main_path(N, device)
     check_step_launches(N, device)
     entry_counts = run_entry_path(device, card)
+    ks.systematic_starts.log_rows = 0
     exact_counts = run_exact_path(device, card)
     snlg_counts = run_snlg_path(device, card)
     skewt_counts = run_skewt_path(device, card)
     mat_counts = run_mat_path(device, card)
+    # Past 2^24 and in the flows the starts take normalized linear weights.
+    _check(ks.systematic_starts.log_rows == 0,
+           f"the exact path and the flows read {ks.systematic_starts.log_rows} rows as "
+           f"log-weights, want 0")
     run_kpf_path(device, card)
     check_simulators(device, card)
     spf_counts = run_spf_path(device, card)

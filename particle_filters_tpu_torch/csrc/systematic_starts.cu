@@ -1,5 +1,6 @@
 // Kernel S: the child-run ends (or starts) of systematic resampling, from
-// normalized weights, in one deterministic pass structure.
+// normalized weights or from log-weights and their log-normalizer, in one
+// deterministic pass structure.
 //
 // For B rows of N f32 weights w and one f32 uniform u a row, with M
 // positions (u + i)/M:
@@ -13,6 +14,15 @@
 // written as the (B, N) int32 run ends t, or (M = N) as the (B * N,) starts
 // kernel B2 reads: row b's t shifted by one, its first start 0, all offset
 // by b * N.
+//
+// Log domain: given a device pointer to the rows' f32 log-normalizers
+// log_z (B,), the rows hold log-weights, and every pass that reads them
+// forms w_i = expf(logw_i - log_z) (full precision) as it stages the tile;
+// the rest is the same arithmetic on those w. No normalization pass comes
+// before it: the caller's log_z is the filter step's row (kernel B1's). A
+// log_z of -inf (every log-weight -inf) takes log(1e-30), the guarded value
+// of the plain log_normalize, so the weights are 0 and not NaN. The mode is
+// a template argument, so the linear kernels hold no trace of it.
 //
 // Replaces no TPU kernel. It replaces the plain version's ~35 PyTorch ops
 // (ops/systematic_starts.py: a blocked f64 cumsum, a running maximum, the
@@ -62,10 +72,20 @@ constexpr int kBlocksPerSM = 4;
 constexpr int kStage = kTile + kTile / 32;
 __device__ __forceinline__ int padded(int e) { return e + (e >> 5); }
 
+// Row's log-normalizer, with log_normalize's guard for a row of -inf.
+__device__ __forceinline__ float row_log_z(const float* __restrict__ log_z, int row) {
+  const float lz = __ldg(log_z + row);
+  return lz == -INFINITY ? logf(1e-30f) : lz;
+}
+
 // Entries [0, len) of the tile at w into sm (zeros past len), coalesced:
-// 16-byte loads where vec (w 16-byte aligned, len a multiple of 4).
+// 16-byte loads where vec (w 16-byte aligned, len a multiple of 4). With
+// kLog the entries are log-weights and go in as the weights exp(x - lz):
+// each exp runs as its register goes to shared memory, once all the
+// thread's loads are in flight.
+template <bool kLog>
 __device__ __forceinline__ void stage(const float* __restrict__ w, int len, float* sm,
-                                      bool vec) {
+                                      bool vec, float lz) {
   if (vec) {
     float4 v[kPerThread / 4];
 #pragma unroll
@@ -77,6 +97,10 @@ __device__ __forceinline__ void stage(const float* __restrict__ w, int len, floa
 #pragma unroll
     for (int r = 0; r < kPerThread / 4; ++r) {
       const int e = 4 * (r * kThreads + threadIdx.x);
+      if (kLog && e < len) {
+        v[r] = make_float4(expf(v[r].x - lz), expf(v[r].y - lz), expf(v[r].z - lz),
+                           expf(v[r].w - lz));
+      }
       sm[padded(e)] = v[r].x;
       sm[padded(e + 1)] = v[r].y;
       sm[padded(e + 2)] = v[r].z;
@@ -90,7 +114,10 @@ __device__ __forceinline__ void stage(const float* __restrict__ w, int len, floa
       v[r] = e < len ? __ldg(w + e) : 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < kPerThread; ++r) sm[padded(r * kThreads + threadIdx.x)] = v[r];
+    for (int r = 0; r < kPerThread; ++r) {
+      const int e = r * kThreads + threadIdx.x;
+      sm[padded(e)] = kLog && e < len ? expf(v[r] - lz) : v[r];
+    }
   }
   __syncthreads();
 }
@@ -169,8 +196,10 @@ __device__ __forceinline__ int run_end(float y, float last, float fm, float u) {
 // Pass 1: each tile's f64 total and largest prefix, at scratch[2 * tile].
 // The tiles go last first, so that pass 3, first first, finds in L2 the
 // weights this pass read last.
+template <bool kLog>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-systematic_starts_tile_sums_kernel(const float* __restrict__ w, int n, int tiles,
+systematic_starts_tile_sums_kernel(const float* __restrict__ w,
+                                   const float* __restrict__ log_z, int n, int tiles,
                                    double* __restrict__ scratch, bool vec) {
   __shared__ float sm[kStage];
   __shared__ double warp_sum[kWarps];
@@ -178,7 +207,8 @@ systematic_starts_tile_sums_kernel(const float* __restrict__ w, int n, int tiles
   const int tile = gridDim.x - 1 - blockIdx.x;
   const int row = tile / tiles, k = tile % tiles;
   const int len = min(kTile, n - k * kTile);
-  stage(w + static_cast<long long>(row) * n + static_cast<long long>(k) * kTile, len, sm, vec);
+  stage<kLog>(w + static_cast<long long>(row) * n + static_cast<long long>(k) * kTile, len, sm,
+              vec, kLog ? row_log_z(log_z, row) : 0.0f);
   double sum, top;
   thread_sums(sm, len, sum, top);
   double total;
@@ -258,8 +288,10 @@ systematic_starts_tile_offsets_kernel(double* __restrict__ scratch, int tiles,
 
 // Pass 3 (the only pass for a row of one tile): the tile's run ends, or the
 // starts (shifted by one, offset by row * n).
+template <bool kLog>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-systematic_starts_write_kernel(const float* __restrict__ w, const float* __restrict__ u,
+systematic_starts_write_kernel(const float* __restrict__ w, const float* __restrict__ log_z,
+                               const float* __restrict__ u,
                                const double* __restrict__ scratch,
                                const double* __restrict__ last, int* __restrict__ out,
                                int n, int tiles, int m, int starts_form, bool vec) {
@@ -275,7 +307,7 @@ systematic_starts_write_kernel(const float* __restrict__ w, const float* __restr
     off = scratch[2LL * blockIdx.x];
     floor = static_cast<float>(scratch[2LL * blockIdx.x + 1]);
   }
-  stage(w + at, len, sm, vec);
+  stage<kLog>(w + at, len, sm, vec, kLog ? row_log_z(log_z, row) : 0.0f);
   double sum, top;
   thread_sums(sm, len, sum, top);
   double total;
@@ -325,12 +357,13 @@ systematic_starts_write_kernel(const float* __restrict__ w, const float* __restr
 
 }  // namespace
 
-// rows x n weights w and rows uniforms u; scratch holds 2 * rows * tiles +
-// rows doubles where tiles > 1 (none for one tile); out rows * n int32.
-// starts_form needs m == n. Returns the first launch error, or 0.
-extern "C" int pf_systematic_starts(const float* w, const float* u, double* scratch, int* out,
-                                    int rows, int n, int tiles, int m, int starts_form,
-                                    void* stream) {
+// rows x n weights w (log-weights where log_z, rows log-normalizers, is not
+// null) and rows uniforms u; scratch holds 2 * rows * tiles + rows doubles
+// where tiles > 1 (none for one tile); out rows * n int32. starts_form needs
+// m == n. Returns the first launch error, or 0.
+extern "C" int pf_systematic_starts(const float* w, const float* log_z, const float* u,
+                                    double* scratch, int* out, int rows, int n, int tiles,
+                                    int m, int starts_form, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   if (n > kMaxN || m <= 0 || m > kMaxN || tiles != (n + kTile - 1) / kTile ||
       static_cast<long long>(rows) * n > 0x7fffffffLL || (starts_form && m != n)) {
@@ -341,15 +374,19 @@ extern "C" int pf_systematic_starts(const float* w, const float* u, double* scra
   const bool vec = n % 4 == 0 && reinterpret_cast<unsigned long long>(w) % 16 == 0 &&
                    reinterpret_cast<unsigned long long>(out) % 16 == 0;
   double* last = tiles > 1 ? scratch + 2LL * blocks : nullptr;
+  const auto tile_sums = log_z != nullptr ? &systematic_starts_tile_sums_kernel<true>
+                                          : &systematic_starts_tile_sums_kernel<false>;
+  const auto write = log_z != nullptr ? &systematic_starts_write_kernel<true>
+                                      : &systematic_starts_write_kernel<false>;
   if (tiles > 1) {
-    systematic_starts_tile_sums_kernel<<<blocks, kThreads, 0, s>>>(w, n, tiles, scratch, vec);
+    tile_sums<<<blocks, kThreads, 0, s>>>(w, log_z, n, tiles, scratch, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     systematic_starts_tile_offsets_kernel<<<rows, kThreads, 0, s>>>(scratch, tiles, last);
     const cudaError_t err2 = cudaGetLastError();
     if (err2 != cudaSuccess) return static_cast<int>(err2);
   }
-  systematic_starts_write_kernel<<<blocks, kThreads, 0, s>>>(w, u, scratch, last, out, n,
-                                                            tiles, m, starts_form, vec);
+  write<<<blocks, kThreads, 0, s>>>(w, log_z, u, scratch, last, out, n, tiles, m, starts_form,
+                                    vec);
   return static_cast<int>(cudaGetLastError());
 }

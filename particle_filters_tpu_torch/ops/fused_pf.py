@@ -21,10 +21,12 @@ Layout: particles are (N,) for nx = 1 and (nx, N) for nx > 1, log-weights
 (N,). The JAX package's (8, N/8) layout and 128-lane observation padding
 were TPU layout choices and are not carried over.
 
-Resampling goes through kernel B2 (via ``systematic_resample_values`` of
-``resampling/hard.py``). Whether a step resamples is decided on the host
-from the kernel's trigger: one 4-byte device→host read per step, where the
-JAX package branches on the device with ``lax.cond``.
+Resampling goes through kernels S and B2 (via ``systematic_resample_values``
+of ``resampling/hard.py``); S takes the step's log-weights with the row's
+log Z, so the resample normalizes nothing on its own. Whether a step
+resamples is decided on the host from the kernel's trigger: one 4-byte
+device→host read per step, where the JAX package branches on the device
+with ``lax.cond``.
 
 With a process group (the counterpart of the JAX package's ``axis_name``)
 each rank runs B1 over its n = N/S particles as rank r of the whole cloud:
@@ -474,11 +476,14 @@ class FusedSIRFilter:
     def _resample(self, generator, particles, logw, log_z):
         """The resampled particles and whether a neighbour pool sufficed.
         ``logw`` is the kernel's output, whose logsumexp over the whole
-        cloud is ``log_z``."""
+        cloud is ``log_z`` (a device scalar, never read on the host): kernel
+        S takes both and forms the weights itself, on one device and, over
+        the gathered cloud, in all-gather mode (which so stays bit-equal to
+        one device)."""
         p = particles.view(self.n, 1) if self.nx == 1 else particles.T
         ok = True
         if self.group is None:
-            p_new = systematic_resample_values(generator, p, logw=logw)
+            p_new = systematic_resample_values(generator, p, logw=logw, log_z=log_z)
         elif self.distributed_resample == "neighbor":
             from particle_filters_tpu_torch.parallel.distributed_resample import (
                 neighbor_exchange_systematic_resample,
@@ -491,7 +496,8 @@ class FusedSIRFilter:
                 all_gather_systematic_resample,
             )
 
-            p_new, _ = all_gather_systematic_resample(generator, p, logw, group=self.group)
+            p_new, _ = all_gather_systematic_resample(generator, p, logw, group=self.group,
+                                                      log_z=log_z)
         return (p_new.view(self.n) if self.nx == 1 else p_new.T.contiguous()), ok
 
     def _check(self, state, z):

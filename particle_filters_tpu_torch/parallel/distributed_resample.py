@@ -66,18 +66,25 @@ def _draw_u(generator, u, like):
 
 
 def all_gather_systematic_resample(generator, particles, logw, *, group, u=None,
-                                   exact: Optional[bool] = None):
+                                   exact: Optional[bool] = None, log_z=None):
     """This rank's slice of the global systematic resample, from the
     gathered cloud: ``(new_local_particles, starts)`` with the N global
     starts. ``particles`` (n, d), ``logw`` (n,) log-weights (normalized or
     not: they are normalized over the gathered vector, as the one-device
-    path normalizes them); ``u`` (a test hook) replaces the draw."""
+    path normalizes them); ``u`` (a test hook) replaces the draw. ``log_z``,
+    the whole cloud's log-normalizer (the same bits on every rank), is
+    passed on as the one-device path takes it: kernel S then reads the
+    gathered log-weights in its log domain."""
     n = particles.shape[0]
     p_all = comm.all_gather_cat(particles, group)
     # As the one-device path (``systematic_resample_values_batched``) takes them.
-    w_all = _weights_from(None, comm.all_gather_cat(logw, group)[None])
+    w_all = comm.all_gather_cat(logw, group)[None]
+    if log_z is None:
+        w_all = _weights_from(None, w_all)
+    else:
+        log_z = log_z.reshape(1)
     u = _draw_u(generator, u, w_all)
-    t = _child_run_ends_u(w_all, p_all.shape[0], u, exact=exact)[0]
+    t = _child_run_ends_u(w_all, p_all.shape[0], u, exact=exact, log_z=log_z)[0]
     starts = torch.cat([t.new_zeros(1), t[:-1]])
     out = resample_by_starts(p_all, starts, n_out=n, offset=comm.rank(group) * n)
     return out, starts

@@ -22,6 +22,13 @@ All functions take normalized linear weights ``w`` or log-weights ``logw``
 and draw their uniforms from the caller's ``torch.Generator``, which must
 live on the weights' device. :func:`systematic_resample_values_batched`
 resamples many independent clouds (trials) in one launch of kernel B2.
+
+A caller that holds the log-normalizer of its log-weights already (the
+fused SIR filter: kernel B1's log Z) passes it as ``log_z`` beside ``logw``
+to the values resample: below 2²⁴ kernel S then reads the log-weights
+themselves (its log-domain input), and the normalization's own reduction
+and elementwise passes are not run. Without ``log_z`` the log-weights are
+normalized first, as before.
 """
 
 from __future__ import annotations
@@ -70,23 +77,31 @@ def _inverse_cdf(cdf: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 
 def _child_run_ends_u(
-    weights: torch.Tensor, m: int, u: torch.Tensor, *, exact: Optional[bool] = None
+    weights: torch.Tensor, m: int, u: torch.Tensor, *, exact: Optional[bool] = None,
+    log_z: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """t_j = #{i : (u + i)/M < cdf_j} = ⌈M·cdf_j − u⌉ for a given u, along
     the last axis of ``weights`` (one u per row): kernel S on a CUDA
-    tensor, its plain version on a CPU one. Past max(N, M) = 2²⁴ the exact
-    integer path computes them; ``exact=True/False`` forces either path
-    (testing)."""
+    tensor, its plain version on a CPU one. With ``log_z`` (one a row) the
+    rows are log-weights and ``log_z`` their log-normalizers (kernel S's
+    log-domain input). Past max(N, M) = 2²⁴ the exact integer path computes
+    them from normalized linear weights; ``exact=True/False`` forces either
+    path (testing)."""
     n = weights.shape[-1]
     if exact is None:
         exact = max(n, m) > EXACT_THRESHOLD
     if exact:
+        if log_z is not None:
+            weights = _weights_from(None, weights)
         return exact_child_run_ends_u(weights, m, u)
     u = torch.as_tensor(u, dtype=weights.dtype)
     if u.device != weights.device:
         u = u.to(weights.device)
     u = u.expand(weights.shape[:-1]).reshape(-1).contiguous()
-    return systematic_run_ends(weights.reshape(-1, n).contiguous(), m, u).view(weights.shape)
+    if log_z is not None:
+        log_z = log_z.reshape(-1).contiguous()
+    return systematic_run_ends(weights.reshape(-1, n).contiguous(), m, u,
+                               log_z=log_z).view(weights.shape)
 
 
 def _child_run_ends(
@@ -140,10 +155,12 @@ def systematic_resample_values(
     *,
     w: Optional[torch.Tensor] = None,
     logw: Optional[torch.Tensor] = None,
+    log_z: Optional[torch.Tensor] = None,
     return_starts: bool = False,
 ):
     """Systematic resampling returning the resampled (N, d) particle VALUES:
-    the one-cloud case of :func:`systematic_resample_values_batched`.
+    the one-cloud case of :func:`systematic_resample_values_batched`
+    (``log_z`` a 0-d or (1,) tensor).
 
     The starts come from kernel S (``ops/systematic_starts.py``) and the
     values from kernel B2 (``ops/resample.py``) on a CUDA tensor, from their
@@ -154,7 +171,7 @@ def systematic_resample_values(
     out, starts = systematic_resample_values_batched(
         generator, particles[None],
         w=None if w is None else w[None], logw=None if logw is None else logw[None],
-        return_starts=True)
+        log_z=None if log_z is None else log_z.reshape(1), return_starts=True)
     return (out[0], starts) if return_starts else out[0]
 
 
@@ -164,29 +181,45 @@ def systematic_resample_values_batched(
     *,
     w: Optional[torch.Tensor] = None,
     logw: Optional[torch.Tensor] = None,
+    log_z: Optional[torch.Tensor] = None,
     return_starts: bool = False,
 ):
     """Systematic resampling of B independent clouds (B, N, d) with weights
     (B, N), one u per cloud from ``generator``, in ONE launch of kernel B2
-    (:func:`batched_starts`). With ``return_starts`` also returns those
-    (B·N,) starts."""
-    weights = _weights_from(w, logw)
+    (:func:`batched_starts`). ``log_z`` (B,), given with ``logw``, holds the
+    clouds' log-normalizers (logsumexp over each row): the starts are then
+    taken from the log-weights (:func:`batched_starts`'s log-domain input).
+    With ``return_starts`` also returns those (B·N,) starts."""
+    if log_z is None:
+        weights = _weights_from(w, logw)
+    elif logw is None or w is not None:
+        raise ValueError("log_z= goes with logw= alone.")
+    else:
+        weights = logw
     b, n, d = particles.shape
-    starts = batched_starts(weights, _uniform(generator, (b,), weights))
+    starts = batched_starts(weights, _uniform(generator, (b,), weights), log_z=log_z)
     out = resample_by_starts(particles.reshape(b * n, d).contiguous(), starts)
     out = out.view(b, n, d)
     return (out, starts) if return_starts else out
 
 
-def batched_starts(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def batched_starts(weights: torch.Tensor, u: torch.Tensor,
+                   log_z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The child-run starts of B clouds (B, N) for the u's (B,), as one
     sorted int32 array (B·N,): cloud b's starts offset by b·N. Every cloud's
     first start is 0, so ``idx[i] = max{j : start_j ≤ i}`` never crosses a
-    cloud. Below N = 2²⁴ one call of kernel S on a CUDA tensor."""
+    cloud. Below N = 2²⁴ one call of kernel S on a CUDA tensor. With
+    ``log_z`` (B,) the rows are log-weights and ``log_z`` their
+    log-normalizers: kernel S (or its plain version) reads them in its log
+    domain; past 2²⁴ they are normalized as without it, since the exact path
+    takes normalized linear weights."""
     n = weights.shape[-1]
     if n > EXACT_THRESHOLD:
+        if log_z is not None:
+            weights = _weights_from(None, weights)
         return starts_from_run_ends(exact_child_run_ends_u(weights, n, u))
-    return systematic_starts(weights.contiguous(), u.contiguous())
+    return systematic_starts(weights.contiguous(), u.contiguous(),
+                             log_z=None if log_z is None else log_z.contiguous())
 
 
 def stratified_resample(

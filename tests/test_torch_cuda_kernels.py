@@ -19,7 +19,10 @@ and the exact run ends at N = 2^25 on the card equal the CPU's. Kernel S
 (the systematic starts) against the plain chain at the SV cells' 2^24 and
 2^20, a ragged 3000 and the flows' 100 x 200 and 100 x 10^4, on five
 weight regimes, differing at no more than 1e-5 of the run ends
-(``chip_smoke.check_starts``). The Sinkhorn tile kernels against their
+(``chip_smoke.check_starts``); its log-domain input against the chain fed
+exp(logw − log_z) under the same share, its linear mode bit-equal to the
+kernel before that input, and degenerate clouds as the normalized path
+gives them. The Sinkhorn tile kernels against their
 plain version from N = 1 to 20000 at d = 1 and 3, and ``DPF_OT.run_filter``
 at N = 8192 resampling through them and its gradient through the VJP
 kernels (``chip_smoke.check_sinkhorn_tile``, ``chip_smoke.run_dpf_ot_path``).
@@ -69,6 +72,39 @@ def test_starts_kernel_matches_plain(cuda_device, rows, n):
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     assert chip_smoke.check_starts(gen, rows, n, cuda_device) <= 1
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1 << 24), (1, 1 << 20), (1, 3000), (100, 200),
+                                    (100, 10_000)])
+def test_starts_log_domain_matches_chain(cuda_device, rows, n):
+    """Kernel S's log-domain input (log-weights and their log-normalizers):
+    starts within one of the plain chain fed exp(logw − log_z) at no more
+    than 1e-5 of the positions, two calls bit-equal, launches and log rows
+    counted (``chip_smoke.check_starts_log`` raises on any miss)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    assert chip_smoke.check_starts_log(gen, rows, n, cuda_device) <= 1
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1 << 24), (1, 1 << 20), (1, 3000), (100, 200),
+                                    (100, 10_000)])
+def test_starts_linear_mode_as_before(cuda_device, rows, n):
+    """Kernel S without log_z writes the bits it wrote before its
+    log-domain input (``chip_smoke.check_starts_linear_pinned``)."""
+    import chip_smoke
+
+    chip_smoke.check_starts_linear_pinned(rows, n, cuda_device)
+
+
+@pytest.mark.parametrize("label", ["all -inf", "all -inf, guarded log Z", "one finite weight",
+                                   "+inf log Z"])
+def test_starts_degenerate_as_before(cuda_device, label):
+    """Degenerate clouds through the log-domain input give the normalized
+    path's starts bit for bit (``chip_smoke.check_starts_degenerate``)."""
+    import chip_smoke
+
+    chip_smoke.check_starts_degenerate(label, cuda_device)
 
 
 @pytest.mark.parametrize("n", SIZES)
