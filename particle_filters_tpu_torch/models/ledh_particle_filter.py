@@ -40,6 +40,7 @@ from particle_filters_tpu_torch.core.linalg import (
     symmetrize,
 )
 from particle_filters_tpu_torch.models.edh_particle_filter import _FlowPF, _lambda_grid
+from particle_filters_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +100,10 @@ class LEDHFlowPF(_FlowPF):
     the uniform λ grid (flow at β_k with Euler increments β_{k+1} − β_k)."""
 
     operator_applies = 0  # see _apply_flow_matrix
+    # The d×d matrices the single-shot Cholesky of _lambda_step factored,
+    # over all trials and calls: 2·B·n a λ-step with a Jacobian a particle,
+    # 2·B where one Jacobian serves every particle.
+    factored_matrices = 0
 
     def __init__(self, tracker, g, h, jacobian_h, log_trans_pdf, log_like_pdf, R,
                  config: Optional[LEDHConfig] = None, device="cuda", group=None,
@@ -107,6 +112,15 @@ class LEDHFlowPF(_FlowPF):
                          config or LEDHConfig(), device, group, distributed_resample,
                          neighbor_radius)
         self.R_inv = chol_solve(self.LR, torch.eye(self.R.shape[0], device=self.device))
+
+    def _run_trials(self, generator, states, tracker_states, zs, *rest):
+        # The trial vmap runs the λ-steps' Python once for all B trials, so
+        # they count one trial's matrices, and B multiplies them here.
+        before = LEDHFlowPF.factored_matrices
+        out = super()._run_trials(generator, states, tracker_states, zs, *rest)
+        one_trial = LEDHFlowPF.factored_matrices - before
+        LEDHFlowPF.factored_matrices = before + zs.shape[0] * one_trial
+        return out
 
     def _per_particle_factors(self, lam, one_minus_c, eta_i, P, P_inv, z, I):
         """ONE particle's Wⁱ, the Cholesky factor LK of Kⁱ, uⁱ and half the
@@ -141,10 +155,13 @@ class LEDHFlowPF(_FlowPF):
         :func:`_apply_flow_matrix` and never formed: once to the four
         vectors u, η₀, η̄, η, once to s = (I + λAⁱ)u + Aⁱη₀, and
         bⁱ = (I + 2λAⁱ)s."""
-        W, LK, u, half_logdets = torch.func.vmap(
-            self._per_particle_factors, in_dims=(None, None, 0, None, None, None, None)
-        )(lam, one_minus_c, eta, P, P_inv, z, I)
-        if W.stride(0) == 0 and LK.stride(0) == 0:
+        with span("pf.ledh.factors"):
+            W, LK, u, half_logdets = torch.func.vmap(
+                self._per_particle_factors, in_dims=(None, None, 0, None, None, None, None)
+            )(lam, one_minus_c, eta, P, P_inv, z, I)
+        shared = W.stride(0) == 0 and LK.stride(0) == 0
+        LEDHFlowPF.factored_matrices += 2 * (1 if shared else eta.shape[0])
+        if shared:
             # The vmap expands what no particle changes: the Jacobian is
             # the same for every particle, and so are W and LK.
             W, LK = W[0], LK[0]

@@ -102,8 +102,11 @@ def _flow(kind, ratio):
     def expected(hist):
         steps = int(hist["resampled"].any(dim=0).sum())
         read = FLOW_T if ratio > 0 else 0
-        return {"pf.flow.run": 1, "pf.flow.advance": FLOW_T, "pf.flow.trigger_read": read,
-                "pf.flow.resample": steps}
+        out = {"pf.flow.run": 1, "pf.flow.advance": FLOW_T, "pf.flow.trigger_read": read,
+               "pf.flow.resample": steps}
+        if kind == "ledh":  # one per λ-step: the vmapped per-particle factors
+            out["pf.ledh.factors"] = FLOW_T * filt.cfg.n_lambda_steps
+        return out
 
     return run, expected
 
