@@ -36,10 +36,14 @@ Then:
 - the main path: the SIR filter on the 1-D stochastic-volatility model
   (alpha=0.95, sigma=0.2, beta=1; N = 2^20, T = 200, systematic resampling
   when ESS < N/2) through ``FusedSIRFilter`` and through the general
-  ``ParticleFilter``, checked, with B1 and B2 counted, every resample step
-  of the fused filter one row of kernel S's log-domain input (B1's log Z,
-  no normalization of its own), and a run that never resamples, which must
-  launch B1 and no other kernel per step;
+  ``ParticleFilter``, checked, with B1 and B2 counted; the fused run is one
+  CUDA graph replay (captured by a run before it), whose every step
+  launches B1, kernel S in its log domain (B1's log Z, no normalization of
+  its own) and B2, the last two gated by B1's trigger; that replay and its
+  steps launched eagerly equal the host's loop bit for bit; S and B2 with a
+  0 trigger leave their outputs alone and with a 1 equal the ungated calls
+  (2^20 and 2^24); a run that never resamples must launch B1, S and B2
+  once a step and no other kernel per step;
 - the entry path (``particle_filters_tpu_torch/entry.py``): ``entry()``'s
   one fused step at N = 2^20 (B1 launched once, B2 as often as it
   resampled, a finite state, 0 < ESS <= N), its posterior mean within 5
@@ -238,6 +242,7 @@ from particle_filters_tpu_torch.utils.timing import profile_device
 
 N = 1 << 20
 T = 200
+CARD_RUN_SEED = 31  # the generator of check_card_run's runs
 ALPHA, SIGMA, BETA = 0.95, 0.2, 1.0
 PROBE_TOL = 1e-5  # X1, X2: f32 telescoping sums of up to 512 terms in two orders
 SMALL_N_SLOPE = (50, 850, 5)  # profile_small_n's m_lo, m_hi, reps here
@@ -844,10 +849,14 @@ def run_main_path(n, device):
     f = FusedSIRFilter(model, [[SIGMA**2]], Np=n, resample_thresh=0.5, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     state0 = f.initialize(gen, [0.0], [[var0]])
+    # The first run of a shape captures it (its eager warm-up steps count
+    # their launches too); the counted run below is one replay.
+    f.run(torch.Generator(device=device).manual_seed(99), state0, zs)
     fused_step.launches = 0
     b2.resample_by_starts.launches = 0
     ks.systematic_starts.launches = 0
     ks.systematic_starts.log_rows = 0
+    graphs = (FusedSIRFilter.graph_captures, FusedSIRFilter.graph_replays + 1)
     _, hist = f.run(gen, state0, zs)
     counts = {"B1": fused_step.launches, "B2": b2.resample_by_starts.launches,
               "S": ks.systematic_starts.launches, "S log rows": ks.systematic_starts.log_rows}
@@ -856,13 +865,18 @@ def run_main_path(n, device):
     print(f"fused SV run N={n} T={T}: sv_rmse {rmse:.4f}, resample_frac {frac:.3f}, "
           f"launches {counts}")
     if device.type == "cuda":
+        # One replay of the captured run: every step launches B1, S and B2,
+        # the last two gated by the step's trigger (no-ops where it is 0).
         _check(counts["B1"] == T, f"B1 launched {counts['B1']} times, want {T}")
-        _check(counts["B2"] == n_res > 0, f"B2 launched {counts['B2']} times, want {n_res} > 0")
-        want = ks.plan(1, n).passes * n_res
+        _check(counts["B2"] == T and n_res > 0,
+               f"B2 launched {counts['B2']} times, want {T} (gated), with {n_res} > 0 resamples")
+        want = ks.plan(1, n).passes * T
         _check(counts["S"] == want, f"S launched {counts['S']} times, want {want}")
-        # Every resample step took the step's log Z into kernel S's log domain.
+        # Every step's starts take the step's log Z into kernel S's log domain.
         _check(counts["S log rows"] == counts["B2"],
                f"S read {counts['S log rows']} rows as log-weights, want B2's {counts['B2']}")
+        got = (FusedSIRFilter.graph_captures, FusedSIRFilter.graph_replays)
+        _check(got == graphs, f"graph captures and replays {got}, want {graphs}")
 
     pf = ParticleFilter(
         lambda x, u: model.g(x), None, Q=[[SIGMA**2]], R=None, Np=n,
@@ -885,6 +899,70 @@ def run_main_path(n, device):
           f"B2 launches {b2.resample_by_starts.launches}; log evidence {ll_g:.3f} "
           f"(fused {ll_f:.3f})")
     return counts, (f, gen, state0, zs)
+
+
+def check_card_run(n, device):
+    """The main path's run decided on the card against the host's loop, at
+    N = ``n``, T = 200 on the main path's data, from one seed: the graph
+    replay (``run``) and the same steps launched eagerly (``_CardRun.steps``:
+    B1's ``DECIDE`` form, S and B2 gated) each give ``_host_run``'s history
+    and final state bit for bit (both draw a run's seeds and uniforms
+    alike)."""
+    sv = simulate_sv_1d(T, ALPHA, SIGMA, BETA, seed=42, device=device)
+    zs = sv.Y[:, None]
+    f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=n, resample_thresh=0.5,
+                       device=device)
+    state0 = f.initialize(torch.Generator(device=device).manual_seed(6), [0.0],
+                          [[SIGMA**2 / (1 - ALPHA**2)]])
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(CARD_RUN_SEED)
+
+    (p_h, lw_h, off_h), hist_h = f._host_run(gen(), state0, zs)
+    (p_r, lw_r, off_r), hist_r = f.run(gen(), state0, zs)
+    card = f._card_runs[(T, 1)]
+    card.load(gen(), state0, zs)
+    card.steps()
+    (p_e, lw_e, off_e), rows_e, trig_e = card.outputs()
+    hist_e = f._hist_dict(rows_e, trig_e)
+    n_res = int(hist_h["resampled"].sum())
+    _check(0 < n_res < T, f"card run: {n_res} resample steps of {T}, want both kinds")
+    for label, (p, lw, off), hist in (("replay", (p_r, lw_r, off_r), hist_r),
+                                      ("eager steps", (p_e.view(n), lw_e, off_e), hist_e)):
+        for k in ("resampled", "log_evidence", "ess", "mean", "cov"):
+            _check(torch.equal(hist[k], hist_h[k]),
+                   f"card run ({label}): history[{k}] == the host's loop's, bit for bit")
+        for name, a, b in (("particles", p, p_h), ("log-weights", lw, lw_h),
+                           ("off_u", off, off_h)):
+            _check(torch.equal(a, b), f"card run ({label}): final {name} == the host's loop's")
+    print(f"card run N={n} T={T}: the graph replay and the eager decided steps equal the "
+          f"host's loop bit for bit (history and final state; {n_res} resample steps)")
+
+
+def check_gates(gen, device):
+    """Kernels S and B2 gated by a trigger on the card, at 2^20 and 2^24:
+    a 0 trigger leaves ``out=`` as it was, a 1 trigger gives the ungated
+    call's result bit for bit."""
+    for n in (N, 1 << 24):
+        logw = 2.0 * torch.randn((1, n), generator=gen, device=device)
+        log_z = torch.logsumexp(logw, 1)
+        u = torch.rand(1, generator=gen, device=device)
+        p = torch.randn((n, 1), generator=gen, device=device)
+        starts = ks.systematic_starts(logw, u, log_z=log_z)
+        values = b2.resample_by_starts(p, starts)
+        for open_ in (0, 1):
+            trig = torch.full((1,), open_, dtype=torch.int32, device=device)
+            s_out = torch.full((n,), -7, dtype=torch.int32, device=device)
+            v_out = torch.full((n, 1), 9.0, device=device)
+            ks.systematic_starts(logw, u, log_z=log_z, trigger=trig, out=s_out)
+            b2.resample_by_starts(p, starts, trigger=trig, out=v_out)
+            torch.cuda.synchronize()
+            s_want = starts if open_ else torch.full_like(s_out, -7)
+            v_want = values if open_ else torch.full_like(v_out, 9.0)
+            _check(torch.equal(s_out, s_want), f"gated S at {n}, trigger {open_}")
+            _check(torch.equal(v_out, v_want), f"gated B2 at {n}, trigger {open_}")
+        print(f"gated S and B2 N={n}: trigger 0 leaves out= as it was, trigger 1 equals the "
+              f"ungated call bit for bit")
 
 
 def run_entry_path(device, card):
@@ -937,31 +1015,38 @@ def run_entry_path(device, card):
 
 
 def check_step_launches(n, device):
-    """Runs that never resample launch B1 once a step and no other kernel
-    of their own a step: the other kernels (the run's set-up and history)
-    do not grow by one a step from T = 20 to T = 40."""
+    """Runs that never resample: the captured run launches B1 once a step,
+    and S's passes and B2 once a step gated shut by B1's trigger, and no
+    other kernel of its own a step: the other kernels (the run's inputs,
+    outputs and history) do not grow by one a step from T = 20 to T = 40."""
     sv = simulate_sv_1d(40, ALPHA, SIGMA, BETA, seed=7, device=device)
     f = FusedSIRFilter(SVModel(ALPHA, BETA), [[SIGMA**2]], Np=n, resample_thresh=0.0,
                        device=device)
     gen = torch.Generator(device=device).manual_seed(5)
     state0 = f.initialize(gen, [0.0], [[SIGMA**2 / (1 - ALPHA**2)]])
-    f.run(gen, state0, sv.Y[:2, None])  # warm-up
-    counts = {}
+    for t_len in (20, 40):  # each length's capture
+        f.run(gen, state0, sv.Y[:t_len, None])
+    counts, gated_a_step = {}, ks.plan(1, n).passes + 1
     for t_len in (20, 40):
         ops = profile_device(lambda: f.run(gen, state0, sv.Y[:t_len, None]), top=None).top
         kernels = [(k, c) for _, c, k in ops if not k.startswith(("Memcpy", "Memset"))]
         if not kernels:
             print("step launches: not measured (profiler saw no device time)")
             return
+        step_kernels = ("_fused_step_kernel", "systematic_starts", "merge_path_resample_kernel")
         b1 = sum(c for k, c in kernels if "_fused_step_kernel" in k)
-        others = [(k[:60], c) for k, c in kernels if "_fused_step_kernel" not in k]
+        gated = sum(c for k, c in kernels if any(s in k for s in step_kernels[1:]))
+        others = [(k[:60], c) for k, c in kernels if not any(s in k for s in step_kernels)]
         counts[t_len] = sum(c for _, c in others)
         _check(b1 == t_len, f"B1 launched {b1} times in {t_len} steps")
-        print(f"no-resample run N={n} T={t_len}: B1 x{b1}, other kernels {others}")
+        _check(gated == gated_a_step * t_len,
+               f"S and B2 launched {gated} times in {t_len} steps, want {gated_a_step} a step")
+        print(f"no-resample run N={n} T={t_len}: B1 x{b1}, S and B2 (gated shut) x{gated}, "
+              f"other kernels {others}")
     _check(counts[40] - counts[20] < 20,
-           f"kernels other than B1: {counts[20]} over 20 steps, {counts[40]} over 40")
-    print(f"no-resample runs N={n}: B1 once a step, other kernels {counts[20]} and "
-          f"{counts[40]} a run over T=20 and T=40 (none per step)")
+           f"kernels other than B1, S and B2: {counts[20]} over 20 steps, {counts[40]} over 40")
+    print(f"no-resample runs N={n}: B1 once a step, S and B2 gated shut, other kernels "
+          f"{counts[20]} and {counts[40]} a run over T=20 and T=40 (none per step)")
 
 
 # --- the exact path -----------------------------------------------------------
@@ -2193,7 +2278,9 @@ def main() -> None:
     check_exact(gen, device)
     torch.cuda.synchronize()
 
+    check_gates(gen, device)
     counts, fused_run = run_main_path(N, device)
+    check_card_run(N, device)
     check_step_launches(N, device)
     entry_counts = run_entry_path(device, card)
     ks.systematic_starts.log_rows = 0

@@ -128,13 +128,13 @@ def run(device, card: str = "") -> dict:
             def call(fn=fn, it=it, phase=phase):
                 k = next(it) % len(sets)
                 (p, starts), o = sets[k], outs[k]
-                err = fn(p.data_ptr(), starts.data_ptr(), o.data_ptr(), N, N, 1, 0,
+                err = fn(p.data_ptr(), starts.data_ptr(), o.data_ptr(), None, N, N, 1, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"B2 {phase}: CUDA error {err}")
             calls[phase] = call
-        fns["full"](sets[0][0].data_ptr(), sets[0][1].data_ptr(), outs[0].data_ptr(), N, N,
-                    1, 0, torch.cuda.current_stream().cuda_stream)
+        fns["full"](sets[0][0].data_ptr(), sets[0][1].data_ptr(), outs[0].data_ptr(), None, N,
+                    N, 1, 0, torch.cuda.current_stream().cuda_stream)
         if not torch.equal(outs[0], b2.resample_by_starts_reference(*sets[0])):
             raise RuntimeError("b2_phases: the full kernel differs from its plain version")
         times = {phase: [] for phase in calls}

@@ -83,7 +83,7 @@ def loop_builders(n, device, ys):
     def build_kernel(m, with_carry):
         zs = ys[:m, None].contiguous()
         gen = torch.Generator(device=device).manual_seed(3)
-        seeds = pf._draw_seeds(gen, m)
+        seeds, _ = pf._draws(gen, m)
         off0 = torch.zeros(2, device=device)
         work = StepWork(1, device)
         rows = torch.empty((m, row_width(1)), device=device)

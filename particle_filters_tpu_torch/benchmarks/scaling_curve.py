@@ -6,16 +6,16 @@ twin of ``benchmarks/scaling_curve.py``.
 Each N runs ``bench.py``'s workload (``FusedSIRFilter`` on the SV model,
 α = 0.95, σ = 0.2, β = 1, resampling at ESS < N/2) at N = 2¹⁴, 2¹⁶, 2¹⁸,
 2²⁰ and 2²² (the JAX script's) and 2²⁴, the largest N on the f32 run ends.
-Time per step is the slope protocol of ``_slope.slope``, run eagerly: the
-best run of ``m_hi`` steps minus the best of ``m_lo`` = 200, over
-``m_hi − m_lo``, so the fixed cost of a run cancels; m_hi is 8000 for
-N ≤ 2¹⁶ and 1700 above, as the JAX script takes them. A CUDA graph cannot
-capture the run: ``FusedSIRFilter.run`` reads the resample trigger on the
-host every step. Each row also has the resample fraction of the last m_hi
-run and the card's busy share of one profiled run of m_lo steps (the union
-of its device intervals over the wall time of an unprofiled run of the same
-length), the number that says whether the host or the card sets the pace
-at that N.
+Time per step is the slope protocol of ``_slope.slope``: the best run
+of ``m_hi`` steps minus the best of ``m_lo`` = 200, over
+``m_hi − m_lo``, so the fixed cost of a run cancels; m_hi is 8000 for N ≤
+2¹⁶ and 1700 above, as the JAX script takes them. On the card
+``FusedSIRFilter.run`` is itself one CUDA graph replay a run, captured on
+its first run of each length (the warm-up). Each row also has the resample
+fraction of the last m_hi run and the card's busy share of one profiled run
+of m_lo steps (the union of its device intervals over the wall time of an
+unprofiled run of the same length), the number that says whether the host
+or the card sets the pace at that N.
 
 Writes JSON only, and only with ``--out``: no figure (the card's machine has
 no matplotlib). Raises without a card unless given ``--device cpu``, where

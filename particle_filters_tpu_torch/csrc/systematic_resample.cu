@@ -42,8 +42,13 @@
 // On the card each of these phases waits about one memory latency and the
 // blocks, all resident at once, pass through them together, so at N = 2^20
 // the phases more than the bytes set the kernel's time (PERF.md). The copy
-// is exact, so the result equals p[idx] bit for bit. Plain C interface,
-// bound with ctypes.
+// is exact, so the result equals p[idx] bit for bit.
+//
+// Gate: given a device pointer to an int32 trigger, every block reads it
+// first and returns at once where it is 0, writing nothing (the fused SIR
+// filter's captured run launches B2 every step and lets its step's trigger,
+// written by kernel B1, decide). A null gate launches as without one. Plain C
+// interface, bound with ctypes.
 
 #include <cuda_runtime.h>
 
@@ -140,7 +145,7 @@ __device__ __forceinline__ float ancestor_value(const float* __restrict__ p,
 
 __global__ void __launch_bounds__(kThreads)
 merge_path_resample_kernel(const float* __restrict__ p, const Starts starts,
-                           float* __restrict__ out, int d) {
+                           float* __restrict__ out, const int* gate, int d) {
   // starts[base, wend) from a 16-byte boundary: the brackets and the block's starts.
   __shared__ __align__(16) int win[kItems + 2 * kBracket + 8];
   // The marks, then the ancestor of each of the block's outputs (padded).
@@ -149,6 +154,7 @@ merge_path_resample_kernel(const float* __restrict__ p, const Starts starts,
   __shared__ int warp_max[kThreads / 32];
   static_assert(kPerThread == 16, "a thread's marks are one padded row of 16");
 
+  if (gate != nullptr && *gate == 0) return;  // the same for every block
   const int m = starts.m;
   const long long d0 = static_cast<long long>(blockIdx.x) * kItems;
   const long long d1 = min(d0 + kItems, static_cast<long long>(m) + starts.n);
@@ -261,8 +267,10 @@ merge_path_resample_kernel(const float* __restrict__ p, const Starts starts,
 
 }  // namespace
 
-extern "C" int pf_resample_by_starts(const float* p, const int* starts, float* out, int m,
-                                     int n, int d, int off, void* stream) {
+// A no-op where gate is not null and reads 0.
+extern "C" int pf_resample_by_starts(const float* p, const int* starts, float* out,
+                                     const int* gate, int m, int n, int d, int off,
+                                     void* stream) {
   if (n <= 0 || d <= 0) return 0;
   if (m <= 0 || m > (1 << 30) || n > (1 << 30) || off < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -270,6 +278,6 @@ extern "C" int pf_resample_by_starts(const float* p, const int* starts, float* o
   const long long items = static_cast<long long>(m) + n;
   const int blocks = static_cast<int>((items + kItems - 1) / kItems);
   merge_path_resample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, Starts{starts, m, n, off}, out, d);
+      p, Starts{starts, m, n, off}, out, gate, d);
   return static_cast<int>(cudaGetLastError());
 }

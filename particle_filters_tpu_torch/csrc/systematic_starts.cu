@@ -24,6 +24,12 @@
 // of the plain log_normalize, so the weights are 0 and not NaN. The mode is
 // a template argument, so the linear kernels hold no trace of it.
 //
+// Gate: given a device pointer to an int32 trigger, every block of every
+// pass reads it first and returns at once where it is 0, so the launches
+// write nothing (the fused SIR filter's captured run launches S every step
+// and lets its step's trigger, written by kernel B1, decide). A null gate
+// launches as without one.
+//
 // Replaces no TPU kernel. It replaces the plain version's ~35 PyTorch ops
 // (ops/systematic_starts.py: a blocked f64 cumsum, a running maximum, the
 // run-end arithmetic and the starts' shift), which move ~2.5 GB through HBM at
@@ -71,6 +77,9 @@ constexpr int kBlocksPerSM = 4;
 // distinct banks.
 constexpr int kStage = kTile + kTile / 32;
 __device__ __forceinline__ int padded(int e) { return e + (e >> 5); }
+
+// Whether a launch with this gate does its work (every block asks alike).
+__device__ __forceinline__ bool gate_open(const int* gate) { return gate == nullptr || *gate != 0; }
 
 // Row's log-normalizer, with log_normalize's guard for a row of -inf.
 __device__ __forceinline__ float row_log_z(const float* __restrict__ log_z, int row) {
@@ -199,8 +208,9 @@ __device__ __forceinline__ int run_end(float y, float last, float fm, float u) {
 template <bool kLog>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 systematic_starts_tile_sums_kernel(const float* __restrict__ w,
-                                   const float* __restrict__ log_z, int n, int tiles,
-                                   double* __restrict__ scratch, bool vec) {
+                                   const float* __restrict__ log_z, const int* gate, int n,
+                                   int tiles, double* __restrict__ scratch, bool vec) {
+  if (!gate_open(gate)) return;
   __shared__ float sm[kStage];
   __shared__ double warp_sum[kWarps];
   __shared__ double warp_top[kWarps];
@@ -234,8 +244,9 @@ __device__ __forceinline__ int padded2(int i) { return i + (i >> 4); }
 // its f64 offset O_k and its floor g_k; the row's last cdf value in last.
 // The row's pairs go through shared memory, copied in and out coalesced.
 __global__ void __launch_bounds__(kThreads)
-systematic_starts_tile_offsets_kernel(double* __restrict__ scratch, int tiles,
-                                      double* __restrict__ last) {
+systematic_starts_tile_offsets_kernel(const int* gate, double* __restrict__ scratch,
+                                      int tiles, double* __restrict__ last) {
+  if (!gate_open(gate)) return;
   __shared__ double pairs[2 * kMaxTiles + 2 * kMaxTiles / 16];
   __shared__ double warp_sum[kWarps];
   __shared__ float warp_max[kWarps];
@@ -291,10 +302,11 @@ systematic_starts_tile_offsets_kernel(double* __restrict__ scratch, int tiles,
 template <bool kLog>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 systematic_starts_write_kernel(const float* __restrict__ w, const float* __restrict__ log_z,
-                               const float* __restrict__ u,
+                               const float* __restrict__ u, const int* gate,
                                const double* __restrict__ scratch,
                                const double* __restrict__ last, int* __restrict__ out,
                                int n, int tiles, int m, int starts_form, bool vec) {
+  if (!gate_open(gate)) return;
   __shared__ float sm[kStage];  // the weights, then the run ends' bits in their slots
   __shared__ double warp_sum[kWarps];
   __shared__ float warp_max[kWarps];
@@ -358,12 +370,13 @@ systematic_starts_write_kernel(const float* __restrict__ w, const float* __restr
 }  // namespace
 
 // rows x n weights w (log-weights where log_z, rows log-normalizers, is not
-// null) and rows uniforms u; scratch holds 2 * rows * tiles + rows doubles
+// null) and rows uniforms u, launched as no-ops where gate is not null and
+// reads 0; scratch holds 2 * rows * tiles + rows doubles
 // where tiles > 1 (none for one tile); out rows * n int32. starts_form needs
 // m == n. Returns the first launch error, or 0.
 extern "C" int pf_systematic_starts(const float* w, const float* log_z, const float* u,
-                                    double* scratch, int* out, int rows, int n, int tiles,
-                                    int m, int starts_form, void* stream) {
+                                    const int* gate, double* scratch, int* out, int rows,
+                                    int n, int tiles, int m, int starts_form, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
   if (n > kMaxN || m <= 0 || m > kMaxN || tiles != (n + kTile - 1) / kTile ||
       static_cast<long long>(rows) * n > 0x7fffffffLL || (starts_form && m != n)) {
@@ -379,14 +392,14 @@ extern "C" int pf_systematic_starts(const float* w, const float* log_z, const fl
   const auto write = log_z != nullptr ? &systematic_starts_write_kernel<true>
                                       : &systematic_starts_write_kernel<false>;
   if (tiles > 1) {
-    tile_sums<<<blocks, kThreads, 0, s>>>(w, log_z, n, tiles, scratch, vec);
+    tile_sums<<<blocks, kThreads, 0, s>>>(w, log_z, gate, n, tiles, scratch, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    systematic_starts_tile_offsets_kernel<<<rows, kThreads, 0, s>>>(scratch, tiles, last);
+    systematic_starts_tile_offsets_kernel<<<rows, kThreads, 0, s>>>(gate, scratch, tiles, last);
     const cudaError_t err2 = cudaGetLastError();
     if (err2 != cudaSuccess) return static_cast<int>(err2);
   }
-  write<<<blocks, kThreads, 0, s>>>(w, log_z, u, scratch, last, out, n, tiles, m, starts_form,
-                                    vec);
+  write<<<blocks, kThreads, 0, s>>>(w, log_z, u, gate, scratch, last, out, n, tiles, m,
+                                    starts_form, vec);
   return static_cast<int>(cudaGetLastError());
 }

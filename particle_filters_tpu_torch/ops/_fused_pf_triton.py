@@ -48,6 +48,13 @@ log-weight (4 B) and writes both back, 16 B at nx = 1. The design:
   ``fused_pf._combine_partials``), writes the row, the carry and the
   trigger, and sets the counter back to 0 for the next launch or graph
   replay.
+- Deciding on the card (``DECIDE``, the fused SIR filter's captured run): the
+  kernel loads its Philox seed from the run's seeds on the device, reads its
+  particles from the resample's buffer where ``off_u`` flags a resample (one
+  pointer select a program, no copy), and its finish writes the next step's
+  ``off_u`` in place of the carry: (0, 1) where the trigger is set, (log_z, 0)
+  otherwise, the value the host chooses on the eager path. Nothing of the
+  step then needs the host, so a run of steps can be captured.
 
 Model functions take ``(x, rows, p_ptr, NX)`` (``g``, returning the
 propagated (NXP, Q) tile) and ``(x, rows, z_ptr, p_ptr, NX)``
@@ -178,12 +185,12 @@ def _exx_tile(xa, ea, xb, eb, xc, ec, xd, ed, rows, ri,
 
 @triton.jit(do_not_specialize=["seed"])
 def _fused_step_kernel(
-    x_ptr, lw_ptr, z_ptr, off_ptr, lq_ptr, p_ptr, eps_ptr,
+    x_ptr, lw_ptr, z_ptr, off_ptr, lq_ptr, p_ptr, eps_ptr, xr_ptr, seed_ptr,
     x_out_ptr, lw_out_ptr, part_ptr, row_ptr, carry_ptr, trig_ptr, count_ptr,
     seed, n, n_tiles, tile0, nq, log_n, thresh_n,
     NX: tl.constexpr, NXP: tl.constexpr, Q: tl.constexpr, PART_W: tl.constexpr,
     NXXP: tl.constexpr, FINISH: tl.constexpr, G: tl.constexpr,
-    OBS_LL: tl.constexpr, READ_EPS: tl.constexpr,
+    OBS_LL: tl.constexpr, READ_EPS: tl.constexpr, DECIDE: tl.constexpr,
 ):
     pid = tl.program_id(0)
     nprog = tl.num_programs(0)
@@ -193,6 +200,9 @@ def _fused_step_kernel(
     # Philox offsets per state row: one per (global tile, lane), nq a row.
     off = tl.load(off_ptr)
     uniform = tl.load(off_ptr + 1)
+    if DECIDE:  # the seed from the run's seeds; after a resample, its particles
+        seed = tl.load(seed_ptr)
+        x_ptr = tl.where(uniform > 0.5, xr_ptr, x_ptr)
 
     zero = tl.sum(tl.zeros((2,), dtype=tl.float32), axis=0)
     m_run = zero - float("inf")
@@ -308,9 +318,14 @@ def _fused_step_kernel(
         tl.store(row_ptr + 1, ess)
         tl.store(row_ptr + 2 + ri, tl.sum(ex_acc, axis=0) / z, mask=ri < NX)
         tl.store(row_ptr + 2 + NX + cx, tl.sum(exx_acc, axis=0) / z, mask=cx < NX * NX)
-        tl.store(carry_ptr, log_z)
-        tl.store(carry_ptr + 1, zero)
-        tl.store(trig_ptr, (ess < thresh_n).to(tl.int32))
+        resample = ess < thresh_n
+        if DECIDE:  # the next step's off_u: uniform after a resample, else log Z pending
+            tl.store(carry_ptr, tl.where(resample, zero, log_z))
+            tl.store(carry_ptr + 1, tl.where(resample, zero + 1.0, zero))
+        else:
+            tl.store(carry_ptr, log_z)
+            tl.store(carry_ptr + 1, zero)
+        tl.store(trig_ptr, resample.to(tl.int32))
         tl.store(count_ptr, 0)  # clean for the next launch or graph replay
 
 
@@ -329,10 +344,14 @@ def finish_rows(nx: int) -> int:
 
 def launch(x, lw, off_u, z, lq, params, eps, model, seed, thresh_n,
            x_out, lw_out, row_out, carry_out, trigger, counter, part, programs,
-           shard=(0, 1)):
+           shard=(0, 1), x_res=None, seeds=None):
     """Enqueue one B1 launch on the current stream of ``x``'s device, on at
     most ``programs`` programs (``part`` holds a row for each), as rank
     ``shard[0]`` of ``shard[1]`` of a cloud of ``shard[1]·N`` particles.
+    With ``seeds`` (a device tensor whose first entry is the step's seed;
+    ``seed`` is then not read) the launch decides on the card (the module's
+    note): after a resample it reads its particles from ``x_res`` and its
+    finish writes the next step's ``off_u`` into ``carry_out``.
     Returns the number of programs launched (the partials rows written)."""
     nx, n = x.shape
     rank, ranks = shard
@@ -342,13 +361,14 @@ def launch(x, lw, off_u, z, lq, params, eps, model, seed, thresh_n,
     with torch.cuda.device(x.device):
         _fused_step_kernel[grid](
             x, lw, z, off_u, lq, params, x if eps is None else eps,
+            x if x_res is None else x_res, x if seeds is None else seeds,
             x_out, lw_out, part, row_out, carry_out, trigger, counter,
             seed, n, n_tiles, rank * n_tiles, ranks * n_tiles * q, math.log(n * ranks),
             thresh_n,
             NX=nx, NXP=triton.next_power_of_2(nx), Q=q, PART_W=part.shape[1],
             NXXP=triton.next_power_of_2(nx * nx), FINISH=finish_rows(nx),
             G=model.g_tl, OBS_LL=model.obs_loglik_tl, READ_EPS=eps is not None,
-            num_warps=NUM_WARPS,
+            DECIDE=seeds is not None, num_warps=NUM_WARPS,
         )
     return grid[0]
 

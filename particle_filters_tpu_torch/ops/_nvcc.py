@@ -114,3 +114,20 @@ class Kernel:
             err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}.")
+
+
+def check_out_and_gate(out, shape, dtype, device, trigger) -> None:
+    """The output buffer and the gate a kernel's wrapper takes: ``out`` a
+    contiguous ``dtype`` tensor of ``shape`` on ``device`` where given, and
+    ``trigger`` (the gate: the launch does nothing where it reads 0) an
+    int32 (1,) on ``device`` that comes with an ``out`` to leave alone."""
+    if trigger is not None and out is None:
+        raise ValueError("a gated call (trigger=) writes into out=; pass both.")
+    if out is not None and (out.shape != shape or out.dtype != dtype or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} {tuple(shape)} on {device}; got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}.")
+    if trigger is not None and (trigger.shape != (1,) or trigger.dtype != torch.int32
+                                or trigger.device != device):
+        raise ValueError(f"trigger must be an int32 (1,) on {device}; got {trigger.dtype} "
+                         f"{tuple(trigger.shape)} on {trigger.device}.")

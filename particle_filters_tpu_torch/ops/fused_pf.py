@@ -21,12 +21,17 @@ Layout: particles are (N,) for nx = 1 and (nx, N) for nx > 1, log-weights
 (N,). The JAX package's (8, N/8) layout and 128-lane observation padding
 were TPU layout choices and are not carried over.
 
-Resampling goes through kernels S and B2 (via ``systematic_resample_values``
-of ``resampling/hard.py``); S takes the step's log-weights with the row's
-log Z, so the resample normalizes nothing on its own. Whether a step
-resamples is decided on the host from the kernel's trigger: one 4-byte
-device→host read per step, where the JAX package branches on the device
-with ``lax.cond``.
+Resampling goes through kernels S and B2; S takes the step's log-weights
+with the row's log Z, so the resample normalizes nothing on its own. Where
+the JAX package branches on the device with ``lax.cond``,
+:meth:`FusedSIRFilter.run` on a CUDA cloud without a group decides on the
+card (:class:`_CardRun`): B1 writes the step's trigger and the next step's
+``off_u`` and, after a resample, reads its particles from the resample's
+buffer; S and B2 launch every step gated by that trigger. No step then reads
+anything on the host, so the whole T-step run is captured once as a CUDA
+graph and replayed, one launch a run. Elsewhere (a CPU cloud, a group,
+``step``, N past 2²⁴) the host reads the trigger, 4 bytes a step, and
+launches the resample (``resampling/hard.py``) where it is set.
 
 With a process group (the counterpart of the JAX package's ``axis_name``)
 each rank runs B1 over its n = N/S particles as rank r of the whole cloud:
@@ -71,6 +76,9 @@ import torch
 
 from particle_filters_tpu_torch.core import comm
 from particle_filters_tpu_torch.core.structs import as_f32
+from particle_filters_tpu_torch.ops.resample import resample_by_starts
+from particle_filters_tpu_torch.ops.systematic_starts import systematic_starts
+from particle_filters_tpu_torch.resampling.exact import EXACT_THRESHOLD
 from particle_filters_tpu_torch.resampling.hard import systematic_resample_values
 from particle_filters_tpu_torch.utils.timing import span
 
@@ -399,6 +407,168 @@ def _fused_step(x, lw, off_u, z, Lq, params, model, seed, eps, resample_thresh,
 fused_step.launches = 0
 
 
+def _decided_step(x, x_res, lw, off_u, z, seeds, Lq, params, model, resample_thresh, work,
+                  x_out, lw_out, row_out, carry_out, trigger_out):
+    """One step of B1 that decides the resample on the card, on checked
+    arguments (one device, one rank): the particles are ``x_res`` where
+    ``off_u`` flags a resample and ``x`` otherwise, the Philox seed is
+    ``seeds[0]`` (a device tensor), and the finish writes the trigger
+    ess < thresh·N into ``trigger_out`` (int32 (1,)) and the next step's
+    ``off_u`` into ``carry_out``: (0, 1) where it is set, (log_z, 0)
+    otherwise. x', lw' and the row land in ``x_out``, ``lw_out`` and
+    ``row_out``. A CPU tensor takes the plain version, which reads the flag
+    and the seed on the host and draws the normals as :func:`fused_step`
+    does from that seed."""
+    nx, n = x.shape
+    if x.device.type == "cpu":
+        gen = torch.Generator().manual_seed(int(seeds[0]))
+        eps = torch.randn((nx, n), generator=gen, dtype=x.dtype)
+        src = x_res if bool(off_u[1] > 0.5) else x
+        x_new, lw_new, work._last = _reference_partials(src, lw, off_u, z, eps, Lq, model)
+        row = row_out.copy_(_packed(work._last, nx))
+        trigger = row[1] < resample_thresh * n
+        trigger_out.copy_(trigger)
+        carry_out.copy_(torch.where(trigger, torch.tensor([0.0, 1.0]),
+                                    torch.stack([row[0], torch.zeros_like(row[0])])))
+        x_out.copy_(x_new)
+        lw_out.copy_(lw_new)
+        return
+    from particle_filters_tpu_torch.ops import _fused_pf_triton
+
+    programs = _fused_pf_triton.launch(
+        x, lw, off_u, z, Lq, params, None, model, 0, float(resample_thresh * n), x_out, lw_out,
+        row_out, carry_out, trigger_out, work.counter, work.partials, work.programs,
+        x_res=x_res, seeds=seeds,
+    )
+    work._last = work.partials[:programs]
+    fused_step.launches += 1
+
+
+# The launch counters a run's kernels keep: (owner, attribute) pairs.
+_LAUNCH_COUNTERS = ((fused_step, "launches"), (systematic_starts, "launches"),
+                    (systematic_starts, "log_rows"), (resample_by_starts, "launches"))
+# Steps run eagerly before a capture: steps 0-7 pass every alignment of the
+# inputs' rows (t mod 4) and of the alternating buffers that Triton
+# specializes B1 on, so the capture compiles and loads no kernel.
+_WARM_STEPS = 8
+# Captured runs a filter keeps, the least recently run dropped first: the
+# slope protocol alternates two lengths.
+_CARD_RUNS_KEPT = 2
+
+
+def _run_draws(generator, seeds, us) -> None:
+    """A run's draws from ``generator``, the one rule of every SIR run: the
+    T kernel seeds into ``seeds`` (int64 (T,)), then the T resample uniforms
+    into ``us`` ((T,); step t's is read where step t resamples)."""
+    T = seeds.shape[0]
+    torch.randint(0, 2**31 - 1, (T,), generator=generator, out=seeds)
+    torch.rand((T,), generator=generator, out=us)
+
+
+class _CardRun:
+    """One shape of :meth:`FusedSIRFilter.run` with the resample decided on
+    the card, in buffers of its own: the inputs (the initial state, the
+    (T, nz) observations, T kernel seeds and T resample uniforms), two
+    particle and two log-weight buffers that the steps alternate, the
+    resample's starts and values, two carries, the (T, 2 + nx + nx²) rows
+    and the (T,) triggers.
+
+    :meth:`steps` launches the T steps, each B1 deciding
+    (:func:`_decided_step`), then kernel S and B2 (one launch a coordinate
+    row) gated by the step's trigger, with no host read, so :meth:`capture`
+    records them once as a CUDA graph and :meth:`replay` launches it. The
+    draws are the host's loop's (:func:`_run_draws`), so a replay gives that
+    loop's run bit for bit. On a CPU cloud :meth:`steps` runs the plain
+    versions, which read the triggers on the host: the run's body, testable
+    without a card."""
+
+    def __init__(self, filt: "FusedSIRFilter", T: int, nz: int) -> None:
+        dev, nx, n = filt.device, filt.nx, filt.n
+        self.filt, self.T = filt, T
+        self.x0 = torch.empty((nx, n), device=dev)
+        self.lw0 = torch.empty(n, device=dev)
+        self.off0 = torch.empty(2, device=dev)
+        self.zs = torch.empty((T, nz), device=dev)
+        self.seeds = torch.empty(T, dtype=torch.int64, device=dev)
+        self.us = torch.empty(T, device=dev)
+        self.xs = torch.empty((2, nx, n), device=dev)
+        self.lws = torch.empty((2, n), device=dev)
+        self.x_res = torch.empty((nx, n), device=dev)
+        self.starts = torch.empty(n, dtype=torch.int32, device=dev)
+        self.carry = torch.empty((2, 2), device=dev)
+        self.rows = torch.empty((T, row_width(nx)), device=dev)
+        self.trig = torch.zeros(T, dtype=torch.int32, device=dev)
+        self.graph = None
+        self.per_replay = []
+
+    def load(self, generator, state, zs) -> None:
+        """The run's inputs into the buffers, on the current stream: the
+        state (read, never written), the observations and the run's draws
+        from ``generator``."""
+        particles, logw, off_u = state
+        self.x0.copy_(particles.view(self.x0.shape))
+        self.lw0.copy_(logw)
+        self.off0.copy_(off_u)
+        self.zs.copy_(zs.view(self.zs.shape))
+        _run_draws(generator, self.seeds, self.us)
+
+    def steps(self, count: Optional[int] = None) -> None:
+        """Launch the first ``count`` steps (all T by default)."""
+        f = self.filt
+        for t in range(self.T if count is None else count):
+            cur, prev = t % 2, (t - 1) % 2
+            if t == 0:
+                x, lw, off_u, x_res = self.x0, self.lw0, self.off0, self.x0
+            else:
+                x, lw, off_u, x_res = self.xs[prev], self.lws[prev], self.carry[prev], self.x_res
+            trig = self.trig[t:t + 1]
+            _decided_step(x, x_res, lw, off_u, self.zs[t], self.seeds[t:t + 1], f.Lq, f.params,
+                          f.model, f.resample_thresh, f._work, self.xs[cur], self.lws[cur],
+                          self.rows[t], self.carry[cur], trig)
+            systematic_starts(self.lws[cur][None], self.us[t:t + 1], log_z=self.rows[t, :1],
+                              trigger=trig, out=self.starts)
+            for k in range(f.nx):  # (nx, N) holds no (N, d) rows: one coordinate a launch
+                resample_by_starts(self.xs[cur, k, :, None], self.starts, trigger=trig,
+                                   out=self.x_res[k, :, None])
+
+    def capture(self) -> None:
+        """Run the first :data:`_WARM_STEPS` steps eagerly on a side stream
+        (every Triton and nvcc kernel compiled and loaded), then capture all
+        T. The launch counters keep the eager steps' launches and not the
+        capture's, which every replay adds instead."""
+        device = self.filt.device
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.steps(min(self.T, _WARM_STEPS))
+        stream.wait_stream(side)
+        before = [getattr(obj, attr) for obj, attr in _LAUNCH_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.steps()
+        for (obj, attr), b in zip(_LAUNCH_COUNTERS, before):
+            self.per_replay.append(getattr(obj, attr) - b)
+            setattr(obj, attr, b)
+        self.graph = graph
+        FusedSIRFilter.graph_captures += 1
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for (obj, attr), d in zip(_LAUNCH_COUNTERS, self.per_replay):
+            setattr(obj, attr, getattr(obj, attr) + d)
+        FusedSIRFilter.graph_replays += 1
+
+    def outputs(self):
+        """``(state, rows, resampled)`` of the last run, copies that a later
+        run does not overwrite: the particles are the resample's values
+        where the last step resampled (no host read decides which)."""
+        last = (self.T - 1) % 2
+        off_u = self.carry[last].clone()
+        particles = torch.where(off_u[1] > 0.5, self.x_res, self.xs[last])
+        return (particles, self.lws[last].clone(), off_u), self.rows.clone(), self.trig.bool()
+
+
 # --- the filter --------------------------------------------------------------
 class FusedSIRFilter:
     """SIR particle filter on the fused step (pointwise models, nx ≤ 10,
@@ -416,7 +586,18 @@ class FusedSIRFilter:
     replicated one (seeded alike on every rank), and ``distributed_resample``
     (``"all_gather"`` | ``"neighbor"``, with ``neighbor_radius``) picks the
     cross-rank resample, as in ``ParticleFilter``.
+
+    ``run`` on a CUDA cloud of N ≤ 2²⁴ without a group decides the resample
+    on the card and replays one CUDA graph a run, captured on the first run
+    of a (T, nz) (:class:`_CardRun`; the filter keeps the last two shapes
+    run); ``graph_captures`` and ``graph_replays`` count both over all
+    filters. Elsewhere, and in ``step``, the host reads the step's trigger.
+    Both draw a run's kernel seeds and then its resample uniforms, one a
+    step (:func:`_run_draws`), and give the same bits.
     """
+
+    graph_captures = 0
+    graph_replays = 0
 
     def __init__(self, model, Q, *, Np: int, resample_thresh: float = 0.5, group=None,
                  distributed_resample: str = "all_gather", neighbor_radius: int = 2,
@@ -444,6 +625,7 @@ class FusedSIRFilter:
         self.resample_thresh = float(resample_thresh)
         self._off_resampled = torch.tensor([0.0, 1.0], device=self.device)
         self._work = StepWork(self.nx, self.device)
+        self._card_runs = {}
 
     def _shape(self):
         return (self.n,) if self.nx == 1 else (self.nx, self.n)
@@ -467,36 +649,39 @@ class FusedSIRFilter:
         _, logw, off_u = state
         return torch.where(off_u[1] > 0.5, -math.log(self.Np), logw - off_u[0])
 
-    def _draw_seeds(self, generator, T: int):
-        """T kernel seeds from ``generator``: one host read per call."""
-        return torch.randint(
-            0, 2**31 - 1, (T,), generator=generator, device=generator.device
-        ).tolist()
+    def _draws(self, generator, T: int):
+        """A run's draws (:func:`_run_draws`): the T kernel seeds as host
+        ints (one host read per call) and the (T,) uniforms on the card."""
+        seeds = torch.empty(T, dtype=torch.int64, device=generator.device)
+        us = torch.empty(T, device=generator.device)
+        _run_draws(generator, seeds, us)
+        return seeds.tolist(), us.to(self.device)
 
-    def _resample(self, generator, particles, logw, log_z):
-        """The resampled particles and whether a neighbour pool sufficed.
-        ``logw`` is the kernel's output, whose logsumexp over the whole
-        cloud is ``log_z`` (a device scalar, never read on the host): kernel
-        S takes both and forms the weights itself, on one device and, over
-        the gathered cloud, in all-gather mode (which so stays bit-equal to
-        one device)."""
+    def _resample(self, u, particles, logw, log_z):
+        """The resampled particles and whether a neighbour pool sufficed,
+        for the uniform ``u`` ((1,), the same on every rank). ``logw`` is
+        the kernel's output, whose logsumexp over the whole cloud is
+        ``log_z`` (a device scalar, never read on the host): kernel S takes
+        both and forms the weights itself, on one device and, over the
+        gathered cloud, in all-gather mode (which so stays bit-equal to one
+        device)."""
         p = particles.view(self.n, 1) if self.nx == 1 else particles.T
         ok = True
         if self.group is None:
-            p_new = systematic_resample_values(generator, p, logw=logw, log_z=log_z)
+            p_new = systematic_resample_values(None, p, logw=logw, log_z=log_z, u=u)
         elif self.distributed_resample == "neighbor":
             from particle_filters_tpu_torch.parallel.distributed_resample import (
                 neighbor_exchange_systematic_resample,
             )
 
             p_new, ok = neighbor_exchange_systematic_resample(
-                generator, p, logw - log_z, group=self.group, radius=self.neighbor_radius)
+                None, p, logw - log_z, group=self.group, radius=self.neighbor_radius, u=u)
         else:
             from particle_filters_tpu_torch.parallel.distributed_resample import (
                 all_gather_systematic_resample,
             )
 
-            p_new, _ = all_gather_systematic_resample(generator, p, logw, group=self.group,
+            p_new, _ = all_gather_systematic_resample(None, p, logw, group=self.group, u=u,
                                                       log_z=log_z)
         return (p_new.view(self.n) if self.nx == 1 else p_new.T.contiguous()), ok
 
@@ -505,9 +690,9 @@ class FusedSIRFilter:
         _check_step_args(particles.view(self.nx, self.n), logw, off_u, z, self.Lq,
                          self.params, None, ranks=self.ranks)
 
-    def _step_core(self, seed, generator, carry, z, row_out, x_out=None, lw_out=None):
-        """One fused step + conditional resample on checked arguments:
-        ``(carry, trigger, exchange_ok)``. The step's row ``[log_z, ess,
+    def _step_core(self, seed, u, carry, z, row_out, x_out=None, lw_out=None):
+        """One fused step + conditional resample (its uniform ``u``, (1,))
+        on checked arguments: ``(carry, trigger, exchange_ok)``. The step's row ``[log_z, ess,
         mean (nx), Σw·x⊗x (nx²)]`` (the whole cloud's, folded over the ranks
         with a group) lands in ``row_out``; x' and lw' in ``x_out`` and
         ``lw_out`` when given (neither may be an input of the step)."""
@@ -529,7 +714,7 @@ class FusedSIRFilter:
         ok = True
         if trigger:
             with span("pf.sir.resample"):
-                particles, ok = self._resample(generator, particles, logw, row_out[0])
+                particles, ok = self._resample(u, particles, logw, row_out[0])
             off_u = self._off_resampled
         else:
             off_u = self._work.carry
@@ -539,7 +724,7 @@ class FusedSIRFilter:
         nx = self.nx
         mean = rows[..., 2 : 2 + nx]
         exx = rows[..., 2 + nx : 2 + nx + nx * nx].reshape(rows.shape[:-1] + (nx, nx))
-        resampled = torch.tensor(triggers, dtype=torch.bool, device=rows.device)
+        resampled = torch.as_tensor(triggers, dtype=torch.bool, device=rows.device)
         return {
             "mean": mean,
             "cov": exx - mean[..., :, None] * mean[..., None, :],
@@ -555,32 +740,67 @@ class FusedSIRFilter:
 
     def step(self, generator, state, z):
         """One filter step: ``(new_state, info)`` with one history row."""
-        (seed,) = self._draw_seeds(generator, 1)
+        (seed,), u = self._draws(generator, 1)
         z = self._obs(z).reshape(-1)
         self._check(state, z)
         row = torch.empty(row_width(self.nx), device=self.device)
-        (particles, logw, off_u), trig, ok = self._step_core(seed, generator, state, z, row)
+        (particles, logw, off_u), trig, ok = self._step_core(seed, u, state, z, row)
         return (particles, logw, off_u.clone()), self._hist_dict(row, trig, ok)
+
+    def _card_run(self, zs) -> Optional[_CardRun]:
+        """The captured run for ``zs``'s shape (made on first use; the
+        filter keeps the :data:`_CARD_RUNS_KEPT` shapes last run, their
+        buffers and graphs), or None where the run stays on the host's loop:
+        a CPU cloud, a group (the ranks fold their partials by collectives),
+        or N past 2²⁴ (the exact run ends, torch ops that read on the
+        host)."""
+        if self.device.type != "cuda" or self.group is not None or self.n > EXACT_THRESHOLD:
+            return None
+        key = (zs.shape[0], zs[0].numel())
+        card = self._card_runs.pop(key, None)
+        if card is None:
+            while len(self._card_runs) >= _CARD_RUNS_KEPT:
+                self._card_runs.pop(next(iter(self._card_runs)))
+            card = _CardRun(self, *key)
+        self._card_runs[key] = card  # the most recent last
+        return card
 
     def run(self, generator, state, zs):
         """Filter a (T, nz) sequence; the history mirrors ``ParticleFilter.run``.
 
-        The outputs are allocated once: two particle and two log-weight
-        buffers that the steps alternate, and the (T, 2 + nx + nx²) rows the
-        kernel writes. ``state`` is read, never written."""
+        On the card (:meth:`_card_run`) one graph replay runs the T steps,
+        with no host read; the state, rows and triggers returned are copies.
+        Elsewhere the host's loop runs them (:meth:`_host_run`). ``state`` is
+        read, never written."""
         with span("pf.sir.run"):
             zs = self._obs(zs)
-            T = zs.shape[0]
             self._check(state, zs[0])
-            seeds = self._draw_seeds(generator, T)
-            xs = torch.empty((2, self.nx, self.n), device=self.device)
-            lws = torch.empty((2, self.n), device=self.device)
-            rows = torch.empty((T, row_width(self.nx)), device=self.device)
-            triggers, oks = [], []
-            for t, seed in enumerate(seeds):
-                state, trig, ok = self._step_core(seed, generator, state, zs[t], rows[t],
-                                                  xs[t % 2], lws[t % 2])
-                triggers.append(trig)
-                oks.append(ok)
-            particles, logw, off_u = state
-            return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers, oks)
+            card = self._card_run(zs)
+            if card is None:
+                return self._host_run(generator, state, zs)
+            card.load(generator, state, zs)
+            if card.graph is None:
+                card.capture()
+            card.replay()
+            (particles, logw, off_u), rows, resampled = card.outputs()
+            return (particles.view(self._shape()), logw, off_u), self._hist_dict(rows, resampled)
+
+    def _host_run(self, generator, state, zs):
+        """``run`` on the host's loop (checked inputs): the host reads each
+        step's trigger and launches the resample where it is set, with the
+        step's uniform. The outputs are allocated once: two particle and two
+        log-weight buffers that the steps alternate, and the (T, 2 + nx +
+        nx²) rows the kernel writes."""
+        T = zs.shape[0]
+        seeds, us = self._draws(generator, T)
+        xs = torch.empty((2, self.nx, self.n), device=self.device)
+        lws = torch.empty((2, self.n), device=self.device)
+        rows = torch.empty((T, row_width(self.nx)), device=self.device)
+        triggers, oks = [], []
+        for t, seed in enumerate(seeds):
+            state, trig, ok = self._step_core(seed, us[t:t + 1], state, zs[t], rows[t],
+                                              xs[t % 2], lws[t % 2])
+            triggers.append(trig)
+            oks.append(ok)
+        particles, logw, off_u = state
+        return (particles, logw, off_u.clone()), self._hist_dict(rows, triggers, oks)

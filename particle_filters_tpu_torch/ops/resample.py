@@ -31,6 +31,12 @@ resample: all-gather mode merges the gathered cloud's N starts with the
 rank's n outputs (offset rank·n); neighbor mode merges its (2r+1)·n pooled
 starts. The kernel clamps each start to [0, n] after the offset as it reads
 it, so the shift costs no pass over the starts.
+
+A gate (an int32 trigger on the device, ``trigger=``) makes a launch a
+no-op where the trigger reads 0: the fused SIR filter's captured run
+launches B2 every step into one output buffer and lets its step's trigger
+decide on the card. The plain version reads the trigger on the host. Without
+a gate the kernel launches as it always has.
 """
 
 from __future__ import annotations
@@ -39,10 +45,10 @@ import ctypes
 
 import torch
 
-from particle_filters_tpu_torch.ops._nvcc import Kernel
+from particle_filters_tpu_torch.ops._nvcc import Kernel, check_out_and_gate
 
 _KERNEL = Kernel("B2 resample kernel", "pf_resample", ("systematic_resample.cu",),
-                 "pf_resample_by_starts", (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4)
+                 "pf_resample_by_starts", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4)
 
 
 def resample_by_starts_reference(
@@ -56,7 +62,8 @@ def resample_by_starts_reference(
     return particles[idx.clamp_(min=0)]
 
 
-def _check(particles: torch.Tensor, starts: torch.Tensor, n_out: int, offset: int) -> None:
+def _check(particles: torch.Tensor, starts: torch.Tensor, n_out: int, offset: int,
+           out=None, trigger=None) -> None:
     if particles.ndim != 2:
         raise ValueError(f"particles must be (N, d); got {tuple(particles.shape)}.")
     if starts.ndim != 1 or starts.shape[0] != particles.shape[0]:
@@ -77,31 +84,40 @@ def _check(particles: torch.Tensor, starts: torch.Tensor, n_out: int, offset: in
         raise ValueError("need M and n_out in [0, 2**30].")
     if not 0 <= offset < 2**31 - n_out:
         raise ValueError(f"need 0 <= offset and offset + n_out < 2**31; got {offset}.")
+    check_out_and_gate(out, (n_out, particles.shape[1]), torch.float32, particles.device,
+                       trigger)
 
 
 def resample_by_starts(particles: torch.Tensor, starts: torch.Tensor, n_out=None,
-                       offset: int = 0) -> torch.Tensor:
+                       offset: int = 0, *, out=None, trigger=None) -> torch.Tensor:
     """Systematic-resampled values of (M, d) f32 ``particles`` given their
     sorted (M,) int32 child-run ``starts``: ``out[i] = particles[max{j :
     starts[j] ≤ offset + i}]`` for i < ``n_out`` (default M), which needs
     ``starts[0] ≤ offset`` (``starts[0] == 0`` for the whole cloud).
 
     A CUDA tensor goes through kernel B2; a CPU tensor through its plain
-    version. ``resample_by_starts.launches`` counts kernel launches.
+    version. The values land in ``out`` (n_out, d) when given. With
+    ``trigger`` (an int32 (1,) on the particles' device, and ``out``) the
+    call is gated: where the trigger reads 0 ``out`` is left as it was, and
+    the starts are not read. ``resample_by_starts.launches`` counts kernel
+    launches, gated ones too.
     """
     n_out = particles.shape[0] if n_out is None else int(n_out)
     offset = int(offset)
-    _check(particles, starts, n_out, offset)
+    _check(particles, starts, n_out, offset, out, trigger)
     if particles.device.type == "cpu":
-        return resample_by_starts_reference(particles, starts, n_out, offset)
+        if trigger is not None and not bool(trigger[0]):
+            return out
+        values = resample_by_starts_reference(particles, starts, n_out, offset)
+        return values if out is None else out.copy_(values)
     if particles.device.type != "cuda":
         raise ValueError(f"unsupported device {particles.device}.")
     if starts.data_ptr() % 16:  # the kernel stages the starts with 16-byte copies
         starts = starts.clone()
     m, d = particles.shape
-    out = particles.new_empty((n_out, d))
-    _KERNEL(particles.device, particles.data_ptr(), starts.data_ptr(), out.data_ptr(), m,
-            n_out, d, offset)
+    out = particles.new_empty((n_out, d)) if out is None else out
+    _KERNEL(particles.device, particles.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            None if trigger is None else trigger.data_ptr(), m, n_out, d, offset)
     resample_by_starts.launches += 1
     return out
 

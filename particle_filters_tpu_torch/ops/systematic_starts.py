@@ -30,6 +30,12 @@ passes its step's log Z (kernel B1's row), so its resample runs no
 normalization of its own. ``systematic_starts.log_rows`` counts the rows
 that took it, the kernel's and the plain version's.
 
+A gate (an int32 trigger on the device, ``trigger=`` with ``out=``) makes
+every pass of a launch a no-op where the trigger reads 0, ``out`` left as
+it was: the fused SIR filter's captured run launches S every step and lets
+its step's trigger decide on the card. The plain version reads the trigger
+on the host. Without a gate the kernel launches as it always has.
+
 The plain version is the chain itself (:func:`cdf`, :func:`run_ends_reference`,
 :func:`starts_reference`; in the log domain fed :func:`linear_weights`); CPU
 tensors take it, bit for bit as before. A CUDA tensor takes the kernel or
@@ -46,10 +52,10 @@ from typing import Optional
 import torch
 
 from particle_filters_tpu_torch.core.block_cumsum import blocked_cumsum
-from particle_filters_tpu_torch.ops._nvcc import Kernel
+from particle_filters_tpu_torch.ops._nvcc import Kernel, check_out_and_gate
 
 _KERNEL = Kernel("systematic starts kernel", "pf_systematic_starts", ("systematic_starts.cu",),
-                 "pf_systematic_starts", (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5)
+                 "pf_systematic_starts", (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5)
 TILE = 8192  # weights a tile: kTile in csrc/systematic_starts.cu
 MAX_N = 1 << 24  # the f32 run ends' ceiling (resampling/exact.py takes larger)
 
@@ -170,28 +176,35 @@ def _check(weights: torch.Tensor, u: torch.Tensor, m: int, log_z=None) -> None:
 
 
 def _launch(weights: torch.Tensor, u: torch.Tensor, m: int, starts_form: bool,
-            log_z=None) -> torch.Tensor:
+            log_z=None, trigger=None, out=None) -> torch.Tensor:
     _check(weights, u, m, log_z)
     rows, n = weights.shape
     p = plan(rows, n)
-    out = weights.new_empty((rows * n,) if starts_form else (rows, n), dtype=torch.int32)
+    if out is None:
+        out = weights.new_empty((rows * n,) if starts_form else (rows, n), dtype=torch.int32)
     scratch = weights.new_empty((p.scratch,), dtype=torch.float64)
     _KERNEL(weights.device, weights.data_ptr(), None if log_z is None else log_z.data_ptr(),
-            u.data_ptr(), scratch.data_ptr(), out.data_ptr(), rows, n, p.tiles, m,
-            int(starts_form))
+            u.data_ptr(), None if trigger is None else trigger.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), rows, n, p.tiles, m, int(starts_form))
     systematic_starts.launches += p.passes
     return out
 
 
 def _run(weights: torch.Tensor, u: torch.Tensor, m: int, starts_form: bool,
-         log_z: Optional[torch.Tensor]) -> torch.Tensor:
+         log_z: Optional[torch.Tensor], trigger=None, out=None) -> torch.Tensor:
     """Either form on a CPU tensor by the plain version, on a CUDA tensor by
-    kernel S; the log-domain rows counted."""
-    if weights.device.type == "cpu":
+    kernel S, into ``out`` when given (gated by ``trigger``); the log-domain
+    rows counted, gated or not."""
+    if out is not None or trigger is not None:
+        rows, n = weights.shape
+        check_out_and_gate(out, (rows * n,) if starts_form else (rows, n), torch.int32,
+                           weights.device, trigger)
+    if weights.device.type != "cpu":
+        out = _launch(weights, u, m, starts_form, log_z, trigger, out)
+    elif trigger is None or bool(trigger[0]):
         w = weights if log_z is None else linear_weights(weights, log_z)
-        out = starts_reference(w, u) if starts_form else run_ends_reference(w, m, u)
-    else:
-        out = _launch(weights, u, m, starts_form, log_z)
+        res = starts_reference(w, u) if starts_form else run_ends_reference(w, m, u)
+        out = res if out is None else out.copy_(res)
     if log_z is not None:
         systematic_starts.log_rows += weights.shape[0]
     return out
@@ -208,16 +221,20 @@ def systematic_run_ends(weights: torch.Tensor, m: int, u: torch.Tensor,
 
 
 def systematic_starts(weights: torch.Tensor, u: torch.Tensor,
-                      log_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      log_z: Optional[torch.Tensor] = None, *, trigger=None,
+                      out=None) -> torch.Tensor:
     """The (B·N,) int32 child-run starts of B clouds (B, N) for the
     uniforms u (B,), M = N: cloud b's run ends shifted by one after a first
     start 0, offset by b·N, as kernel B2 reads them. With ``log_z`` (B,)
     the rows are log-weights whose log-normalizers it holds (the log-domain
     input). A CPU tensor takes the plain version; a CUDA tensor kernel S.
+    The starts land in ``out`` (B·N,) when given; with ``trigger`` (an
+    int32 (1,) on the weights' device, and ``out``) the call is gated: where
+    the trigger reads 0, ``out`` is left as it was.
     ``systematic_starts.launches`` counts the kernel's launches (one a
-    pass), both forms'; ``systematic_starts.log_rows`` the rows that took
-    the log-domain input, both forms', on either device."""
-    return _run(weights, u, weights.shape[-1], True, log_z)
+    pass), both forms', gated ones too; ``systematic_starts.log_rows`` the
+    rows launched in the log domain, both forms', on either device."""
+    return _run(weights, u, weights.shape[-1], True, log_z, trigger, out)
 
 
 systematic_starts.launches = 0

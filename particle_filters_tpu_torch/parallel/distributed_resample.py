@@ -71,7 +71,8 @@ def all_gather_systematic_resample(generator, particles, logw, *, group, u=None,
     gathered cloud: ``(new_local_particles, starts)`` with the N global
     starts. ``particles`` (n, d), ``logw`` (n,) log-weights (normalized or
     not: they are normalized over the gathered vector, as the one-device
-    path normalizes them); ``u`` (a test hook) replaces the draw. ``log_z``,
+    path normalizes them); ``u``, when given, replaces the draw (the fused
+    filter passes its run's uniform of the step). ``log_z``,
     the whole cloud's log-normalizer (the same bits on every rank), is
     passed on as the one-device path takes it: kernel S then reads the
     gathered log-weights in its log domain."""
@@ -148,8 +149,9 @@ def neighbor_exchange_systematic_resample(generator, particles, logw, *, group,
     the values come from the neighbour pool; otherwise every rank takes
     :func:`all_gather_systematic_resample` for the same u. ``exact``: None
     picks f32 up to N = 2²⁴ and the exact integer run ends past it;
-    True/False force either (the rescue uses the same). ``u`` (a test
-    hook) replaces the draw from the replicated ``generator``.
+    True/False force either (the rescue uses the same). ``u``, when given,
+    replaces the draw from the replicated ``generator`` (the fused filter
+    passes its run's uniform of the step).
     """
     n = particles.shape[0]
     s_total, r = comm.size(group), comm.rank(group)

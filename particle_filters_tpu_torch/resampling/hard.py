@@ -157,10 +157,11 @@ def systematic_resample_values(
     logw: Optional[torch.Tensor] = None,
     log_z: Optional[torch.Tensor] = None,
     return_starts: bool = False,
+    u: Optional[torch.Tensor] = None,
 ):
     """Systematic resampling returning the resampled (N, d) particle VALUES:
     the one-cloud case of :func:`systematic_resample_values_batched`
-    (``log_z`` a 0-d or (1,) tensor).
+    (``log_z`` and ``u`` 0-d or (1,) tensors).
 
     The starts come from kernel S (``ops/systematic_starts.py``) and the
     values from kernel B2 (``ops/resample.py``) on a CUDA tensor, from their
@@ -171,7 +172,8 @@ def systematic_resample_values(
     out, starts = systematic_resample_values_batched(
         generator, particles[None],
         w=None if w is None else w[None], logw=None if logw is None else logw[None],
-        log_z=None if log_z is None else log_z.reshape(1), return_starts=True)
+        log_z=None if log_z is None else log_z.reshape(1), return_starts=True,
+        u=None if u is None else u.reshape(1))
     return (out[0], starts) if return_starts else out[0]
 
 
@@ -183,13 +185,15 @@ def systematic_resample_values_batched(
     logw: Optional[torch.Tensor] = None,
     log_z: Optional[torch.Tensor] = None,
     return_starts: bool = False,
+    u: Optional[torch.Tensor] = None,
 ):
     """Systematic resampling of B independent clouds (B, N, d) with weights
-    (B, N), one u per cloud from ``generator``, in ONE launch of kernel B2
-    (:func:`batched_starts`). ``log_z`` (B,), given with ``logw``, holds the
-    clouds' log-normalizers (logsumexp over each row): the starts are then
-    taken from the log-weights (:func:`batched_starts`'s log-domain input).
-    With ``return_starts`` also returns those (B·N,) starts."""
+    (B, N), one u per cloud from ``generator`` (or ``u`` (B,), drawn by the
+    caller), in ONE launch of kernel B2 (:func:`batched_starts`). ``log_z``
+    (B,), given with ``logw``, holds the clouds' log-normalizers (logsumexp
+    over each row): the starts are then taken from the log-weights
+    (:func:`batched_starts`'s log-domain input). With ``return_starts`` also
+    returns those (B·N,) starts."""
     if log_z is None:
         weights = _weights_from(w, logw)
     elif logw is None or w is not None:
@@ -197,7 +201,8 @@ def systematic_resample_values_batched(
     else:
         weights = logw
     b, n, d = particles.shape
-    starts = batched_starts(weights, _uniform(generator, (b,), weights), log_z=log_z)
+    u = _uniform(generator, (b,), weights) if u is None else u
+    starts = batched_starts(weights, u, log_z=log_z)
     out = resample_by_starts(particles.reshape(b * n, d).contiguous(), starts)
     out = out.view(b, n, d)
     return (out, starts) if return_starts else out

@@ -46,10 +46,10 @@ class _Stub:
     def __init__(self, err: int = 0):
         self.calls = []
 
-        def pf_systematic_starts(w, log_z, u, scratch, out, rows, n, tiles, m, starts_form,
-                                 stream):
-            self.calls.append({"w": w, "log_z": log_z, "u": u, "scratch": scratch, "out": out,
-                               "rows": rows, "n": n, "tiles": tiles, "m": m,
+        def pf_systematic_starts(w, log_z, u, gate, scratch, out, rows, n, tiles, m,
+                                 starts_form, stream):
+            self.calls.append({"w": w, "log_z": log_z, "u": u, "gate": gate, "scratch": scratch,
+                               "out": out, "rows": rows, "n": n, "tiles": tiles, "m": m,
                                "starts_form": starts_form})
             return err
 
@@ -131,6 +131,7 @@ def test_cuda_tensors_reach_the_kernel(stub, b, n):
     assert forms == [(b, n, p.tiles, n, 1), (b, n, p.tiles, n, 0),
                      (1, n, ss.plan(1, n).tiles, 7, 0)]
     assert stub.calls[0]["w"] == w.data_ptr() and stub.calls[0]["u"] == u.data_ptr()
+    assert all(c["gate"] is None for c in stub.calls)  # no trigger: the ungated launch
     assert stub.calls[0]["out"] == starts.data_ptr() and stub.calls[0]["out"] % 16 == 0
 
 
@@ -422,11 +423,12 @@ def test_past_2_24_log_z_takes_the_exact_path(stub, monkeypatch):
 
 
 # --- the callers -----------------------------------------------------------------
-def _resample_as_before(self, generator, particles, logw, log_z):
+def _resample_as_before(self, u, particles, logw, log_z):
     """FusedSIRFilter._resample on one device as it stood before the
-    log-domain input: the log-weights normalized in the resample."""
+    log-domain input: the log-weights normalized in the resample (the
+    step's uniform ``u`` as the filter draws it)."""
     p = particles.view(self.n, 1) if self.nx == 1 else particles.T
-    p_new = hard.systematic_resample_values(generator, p, logw=logw)
+    p_new = hard.systematic_resample_values(None, p, logw=logw, u=u)
     return (p_new.view(self.n) if self.nx == 1 else p_new.T.contiguous()), True
 
 
@@ -444,23 +446,47 @@ def _fused_run(nx, n, T=60):
     return f.run(gen, f.initialize(gen, [0.0] * nx, 0.4 * np.eye(nx)), z)
 
 
+def _resample_both(slots):
+    """FusedSIRFilter._resample as it stands (the log-domain input), which
+    it returns, beside the normalized path on the same inputs: appends to
+    ``slots`` the number of output slots whose values differ."""
+    def _resample(self, u, particles, logw, log_z):
+        out, ok = _RESAMPLE(self, u, particles, logw, log_z)
+        before, _ = _resample_as_before(self, u, particles, logw, log_z)
+        slots.append(int((out != before).reshape(self.nx, self.n).any(0).sum()))
+        return out, ok
+    return _resample
+
+
+_RESAMPLE = FusedSIRFilter._resample
+
+
 @pytest.mark.parametrize("nx,n", [(1, 4096), (1, 20000), (2, 4096)])
 def test_fused_history_as_with_the_normalized_path(monkeypatch, nx, n):
-    """FusedSIRFilter.run on the CPU: the resample flags equal, and the ESS,
-    log-evidence and means within f32 rounding of those of the path that
-    normalized the log-weights in the resample (the weights differ only by
-    the normalizer's rounding); one log-domain row a resample step."""
-    rows = ss.systematic_starts.log_rows
+    """FusedSIRFilter.run on the CPU, one log-domain row a resample step:
+    every resample, on the same particles, log-weights and u, gives the
+    normalized path's values but in a few slots (N/500 at most: where a run
+    end lies within the two paths' f32 rounding of a boundary, which the
+    weights differ by); and until such a slot, the run's resample flags,
+    ESS, log-evidence and means are within f32 rounding of those of the run
+    that normalized the log-weights in the resample (after it the two runs
+    follow other clouds), its final particles too where no slot differed."""
+    rows, slots = ss.systematic_starts.log_rows, []
+    monkeypatch.setattr(FusedSIRFilter, "_resample", _resample_both(slots))
     st, hist = _fused_run(nx, n)
-    n_res = int(hist["resampled"].sum())
-    assert n_res > 0 and ss.systematic_starts.log_rows == rows + n_res
+    steps = torch.nonzero(hist["resampled"]).flatten().tolist()
+    assert steps and ss.systematic_starts.log_rows == rows + len(steps) == rows + len(slots)
+    assert max(slots) <= n // 500, slots
     monkeypatch.setattr(FusedSIRFilter, "_resample", _resample_as_before)
     st0, hist0 = _fused_run(nx, n)
-    assert ss.systematic_starts.log_rows == rows + n_res
-    assert torch.equal(hist["resampled"], hist0["resampled"])
+    assert ss.systematic_starts.log_rows == rows + len(steps)
+    first = next((t for t, k in zip(steps, slots) if k), None)
+    end = hist["ess"].shape[0] if first is None else first + 1
+    assert torch.equal(hist["resampled"][:end], hist0["resampled"][:end])
     for k in ("ess", "log_evidence", "mean"):
-        torch.testing.assert_close(hist[k], hist0[k], msg=k)
-    torch.testing.assert_close(st[0], st0[0])
+        torch.testing.assert_close(hist[k][:end], hist0[k][:end], msg=k)
+    if first is None:
+        torch.testing.assert_close(st[0], st0[0])
 
 
 def _pf_run():
